@@ -1,12 +1,13 @@
-"""Carry FastSVC generator weights from the JAX package's layout to the port.
+"""Carry FastSVC weights from the JAX package's layout to the port.
 
-`generator_state_dict_from_jax` is the inverse of the JAX package's
-`compat/torch_weights.py::convert_fastsvc_generator`: it takes the JAX
-generator param pytree as numpy arrays, either in weight-norm form
-({"v", "g", "b"} leaves, WIO v) or folded ({"w", "b"}), and returns a
-state dict with the reference torch keys that `models.fastsvc.
-FastSVCGenerator` loads (built with `use_weight_norm` matching the form).
-No JAX import: the arrays only need `numpy.asarray`.
+`generator_state_dict_from_jax` and `melgan_msd_state_dict_from_jax` are the
+inverses of the JAX package's `compat/torch_weights.py::
+convert_fastsvc_generator` and `convert_melgan_msd`: each takes a JAX param
+pytree as numpy arrays, either in weight-norm form ({"v", "g", "b"} leaves,
+WIO v) or folded ({"w", "b"}), and returns a state dict with the reference
+torch keys that `models.fastsvc.FastSVCGenerator` or
+`MelGANMultiScaleDiscriminator` loads (built with `use_weight_norm`
+matching the form). No JAX import: the arrays only need `numpy.asarray`.
 """
 
 from __future__ import annotations
@@ -57,4 +58,17 @@ def generator_state_dict_from_jax(params) -> dict:
             for key in ("conv", "conv_scale", "conv_shift"):
                 _conv(sd, f"{pre}.{key}", blk[key])
     _conv(sd, "conv_last", params["conv_last"])
+    return sd
+
+
+def melgan_msd_state_dict_from_jax(params) -> dict:
+    """JAX MelGANMultiScaleDiscriminator params -> the port's `state_dict`."""
+    sd = {}
+    for i, disc in enumerate(params["discriminators"]):
+        last = len(disc["layers"]) - 1
+        for j, p in enumerate(disc["layers"]):
+            base = f"discriminators.{i}.layers.{j}"
+            # layer 0 sits after its ReflectionPad1d; the last is bare
+            _conv(sd, f"{base}.1" if j == 0 else base if j == last
+                  else f"{base}.0", p)
     return sd

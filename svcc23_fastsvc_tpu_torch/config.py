@@ -1,13 +1,16 @@
-"""YAML experiment config: load and build the decode path's objects.
+"""YAML experiment config: load, dump, and build the models and the train task.
 
-Counterpart of `svcc23_fastsvc_tpu/config.py` for the keys decode reads
-(the recipe's conf/fastsvc.yaml surface). `yaml` is imported only when a
-file is read, so the package imports where PyYAML is missing.
+Counterpart of `svcc23_fastsvc_tpu/config.py` for the keys of the recipe's
+conf/fastsvc.yaml that decode and training read. The merged config is
+dumped into the experiment dir as config.yml, which decode reads back.
+`yaml` is imported only when a file is read or written, so the package
+imports where PyYAML is missing.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -17,11 +20,36 @@ DEFAULTS: Dict[str, Any] = {
     "hop_size": 160,
     "generator_type": "FastSVCGenerator",
     "generator_params": {},
+    "discriminator_type": "MelGANMultiScaleDiscriminator",
+    "discriminator_params": {},
+    "stft_loss_params": {
+        "fft_sizes": [2048, 1024, 512, 256, 128, 64],
+        "hop_sizes": [512, 256, 128, 64, 32, 16],
+        "win_lengths": [2048, 1024, 512, 256, 128, 64],
+    },
+    "lambda_adv": 2.5,
+    "batch_size": 32,
+    "batch_length": 16000,
     "signal_generator": {
         "sine_amp": 0.1,
         "noise_amp": 0.003,
         "signal_types": ["sine"],
     },
+    "aux_context_window": 0,
+    "generator_optimizer_params": {"lr": 1e-3, "eps": 1e-6,
+                                   "weight_decay": 0.0},
+    "generator_scheduler_params": {"step_size": 100000, "gamma": 0.5},
+    "generator_grad_norm": 10,
+    "discriminator_optimizer_params": {"lr": 1e-3, "eps": 1e-6,
+                                       "weight_decay": 0.0},
+    "discriminator_scheduler_params": {"step_size": 100000, "gamma": 0.5},
+    "discriminator_grad_norm": 1,
+    "generator_train_start_steps": 0,
+    "discriminator_train_start_steps": 100000,
+    "train_max_steps": 600000,
+    "save_interval_steps": 50000,
+    "eval_interval_steps": 5000,
+    "log_interval_steps": 5000,
 }
 
 
@@ -33,6 +61,14 @@ def load_config(path: Optional[str] = None) -> dict:
         with open(path) as f:
             cfg.update(yaml.safe_load(f) or {})
     return cfg
+
+
+def dump_config(cfg: dict, outdir: str):
+    import yaml
+
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "config.yml"), "w") as f:
+        yaml.safe_dump(cfg, f)
 
 
 def build_generator(cfg: dict, *, device=None, generator=None, **kw):
@@ -50,6 +86,18 @@ def build_generator(cfg: dict, *, device=None, generator=None, **kw):
         if k in params:
             kw[k] = tuple(params[k])
     return FastSVCGenerator(**kw, device=device, generator=generator)
+
+
+def build_discriminator(cfg: dict, *, device=None, generator=None):
+    """MelGANMultiScaleDiscriminator from `discriminator_params`."""
+    from .models.fastsvc import MelGANMultiScaleDiscriminator
+
+    dtype = cfg.get("discriminator_type", "MelGANMultiScaleDiscriminator")
+    if dtype != "MelGANMultiScaleDiscriminator":
+        raise KeyError(f"discriminator_type {dtype!r} is not ported yet")
+    return MelGANMultiScaleDiscriminator.from_config(
+        cfg.get("discriminator_params", {}), device=device,
+        generator=generator)
 
 
 def build_signal_generator(cfg: dict):
@@ -73,3 +121,47 @@ def parse_compute_dtype(dtype_name):
     if dtype_name in ("bfloat16", "bf16"):
         return torch.bfloat16
     raise KeyError(f"unknown compute_dtype {dtype_name!r}")
+
+
+def _optimizer(cfg: dict, who: str, params):
+    from .train.state import RefRAdam
+
+    opt = cfg.get(f"{who}_optimizer_params", {})
+    sch = cfg.get(f"{who}_scheduler_params", {})
+    return RefRAdam(
+        params,
+        lr=opt.get("lr", 1e-3),
+        eps=opt.get("eps", 1e-6),
+        weight_decay=opt.get("weight_decay", 0.0),
+        grad_norm=cfg.get(f"{who}_grad_norm",
+                          10 if who == "generator" else 1),
+        scheduler_step_size=sch.get("step_size", 100000),
+        scheduler_gamma=sch.get("gamma", 0.5),
+    )
+
+
+def build_train_task(cfg: dict, *, device="cuda", seed: int = 0):
+    """G, D (weights from `seed`), their optimizers and the losses, on
+    `device`. Params, optimizer state and losses are f32; `compute_dtype`
+    bfloat16 runs the convs and matmuls in bf16 (FastSVCTrainTask)."""
+    from .losses import MultiResolutionSTFTLoss
+    from .train.gan import FastSVCTrainTask
+
+    device = torch.device(device)
+    init = torch.Generator().manual_seed(seed)
+    gen = build_generator(cfg, generator=init).to(device)
+    dis = build_discriminator(cfg, generator=init).to(device)
+    stft = cfg.get("stft_loss_params", DEFAULTS["stft_loss_params"])
+    return FastSVCTrainTask(
+        generator=gen,
+        discriminator=dis,
+        g_opt=_optimizer(cfg, "generator", gen.parameters()),
+        d_opt=_optimizer(cfg, "discriminator", dis.parameters()),
+        signal_generator=build_signal_generator(cfg),
+        stft_loss=MultiResolutionSTFTLoss(
+            tuple(stft["fft_sizes"]), tuple(stft["hop_sizes"]),
+            tuple(stft["win_lengths"])),
+        lambda_adv=cfg.get("lambda_adv", 2.5),
+        compute_dtype=parse_compute_dtype(cfg.get("compute_dtype")),
+        rng=torch.Generator(device=device).manual_seed(seed + 1),
+    )

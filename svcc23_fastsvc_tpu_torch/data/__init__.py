@@ -1,1 +1,1 @@
-"""Decode-time data access."""
+"""Host-side data: hdf5 dumps, datasets, batching and the wire format."""

@@ -4,5 +4,7 @@ from .fastsvc import (  # noqa: F401
     DownsampleBlock,
     FastSVCGenerator,
     FiLMBlock,
+    MelGANDiscriminator,
+    MelGANMultiScaleDiscriminator,
     UpsampleBlock,
 )

@@ -1,10 +1,11 @@
-"""FastSVC generator (paper Fig. 3-4), the decode half.
+"""FastSVC generator (paper Fig. 3-4) and the MelGAN multi-scale discriminator.
 
-Counterpart of `svcc23_fastsvc_tpu/models/fastsvc.py::FastSVCGenerator` as
-`nn.Module`s. Public tensors are channels-last (B, T, C), as in the JAX
-package. Parameters keep the reference torch module tree and state-dict
-keys (the ones `svcc23_fastsvc_tpu/compat/torch_weights.py::
-convert_fastsvc_generator` reads), with torch Conv1d layout (O, I, K) and
+Counterpart of `svcc23_fastsvc_tpu/models/fastsvc.py::FastSVCGenerator` and
+`MelGANMultiScaleDiscriminator` as `nn.Module`s. Public tensors are
+channels-last (B, T, C), as in the JAX package. Parameters keep the
+reference torch module tree and state-dict keys (the ones
+`svcc23_fastsvc_tpu/compat/torch_weights.py::convert_fastsvc_generator`
+and `convert_melgan_msd` read), with torch Conv1d layout (O, I, K) and
 weight norm stored as `weight_g` (O, 1, 1) / `weight_v`. Where the reference
 wraps a conv in an `nn.Sequential` of parameter-free layers (activation,
 resampling), an `nn.ModuleList` with `nn.Identity` placeholders keeps the
@@ -13,7 +14,10 @@ directly.
 
 Like the JAX model, the downsampling chains run once per forward and keep
 every tap, and `_film_pair` fuses the sine and loudness FiLM output convs
-into one (K, 2C, 2C) conv for inference.
+into one (K, 2C, 2C) conv for inference. Training runs the unfused forward
+with weight norm live: `Conv1d.wio()` builds the effective weight from
+`weight_g`/`weight_v` inside the graph, so their gradients come back in the
+parameters' own (O, I, K) layout.
 """
 
 from __future__ import annotations
@@ -25,12 +29,14 @@ import torch
 from torch import nn
 
 from ..ops.conv import (
+    avg_pool1d,
     conv1d,
     conv_weight,
     instance_norm,
     l2_normalize,
     leaky_relu,
     linear,
+    reflect_pad1d,
 )
 from ..ops.resample import nearest_downsample, nearest_upsample
 
@@ -41,17 +47,20 @@ def _uniform(shape, bound, device, generator):
 
 
 class Conv1d(nn.Module):
-    """Stride-1 conv parameters, torch layout, optionally weight-normed.
+    """Conv parameters in torch layout (O, I/groups, K), optionally
+    weight-normed.
 
-    Initialised as torch.nn.Conv1d (uniform, bound 1/sqrt(K*C_in)); weight
-    norm starts at g = ||v|| per output channel, as torch weight_norm does.
+    Initialised as torch.nn.Conv1d (uniform, bound 1/sqrt(K*C_in/groups));
+    weight norm starts at g = ||v|| per output channel, as torch weight_norm
+    does.
     """
 
-    def __init__(self, in_channels, out_channels, kernel_size, *,
+    def __init__(self, in_channels, out_channels, kernel_size, *, groups=1,
                  weight_norm=True, device=None, generator=None):
         super().__init__()
-        bound = 1.0 / math.sqrt(kernel_size * in_channels)
-        w = _uniform((out_channels, in_channels, kernel_size), bound, device,
+        in_pg = in_channels // groups
+        bound = 1.0 / math.sqrt(kernel_size * in_pg)
+        w = _uniform((out_channels, in_pg, kernel_size), bound, device,
                      generator)
         b = _uniform((out_channels,), bound, device, generator)
         if weight_norm:
@@ -62,6 +71,7 @@ class Conv1d(nn.Module):
             self.weight = nn.Parameter(w)
         self.bias = nn.Parameter(b)
         self.kernel_size = kernel_size
+        self.groups = groups
 
     def wio(self):
         """Effective weight as a WIO (K, C_in, C_out) view."""
@@ -79,10 +89,14 @@ class Conv1d(nn.Module):
         del self.weight_g, self.weight_v
         self.weight = nn.Parameter(w)
 
-    def forward(self, x, *, dilation: int = 1, input_leaky=None):
-        pad = (self.kernel_size - 1) // 2 * dilation
-        return conv1d(x.contiguous(), self.wio(), self.bias, padding=pad,
-                      dilation=dilation, input_leaky=input_leaky)
+    def forward(self, x, *, dilation: int = 1, input_leaky=None, stride=1,
+                padding=None):
+        """padding None is "same" padding (K-1)/2 * dilation."""
+        if padding is None:
+            padding = (self.kernel_size - 1) // 2 * dilation
+        return conv1d(x, self.wio(), self.bias, stride=stride,
+                      padding=padding, dilation=dilation, groups=self.groups,
+                      input_leaky=input_leaky)
 
 
 class Linear(nn.Module):
@@ -326,3 +340,116 @@ class FastSVCGenerator(nn.Module):
         sine = signal_generator(f0, generator)
         out = self(ppg, sine, lft, spk_emb, fuse_film=True)
         return out[0] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
+# MelGAN multi-scale discriminator (JAX package models/fastsvc.py:395-536).
+# ---------------------------------------------------------------------------
+
+
+class MelGANDiscriminator(nn.Module):
+    """Single-scale MelGAN discriminator.
+
+    Reference module tree: `layers.0` = (ReflectionPad1d, Conv1d, LeakyReLU),
+    `layers.j` = (Conv1d, LeakyReLU) for the strided grouped convs and the
+    K0 conv, the last layer a bare Conv1d; the placeholders keep each conv
+    at its reference index.
+    """
+
+    def __init__(self, in_channels=1, out_channels=1, kernel_sizes=(5, 3),
+                 channels=16, max_downsample_channels=1024,
+                 downsample_scales=(4, 4, 4, 4), negative_slope=0.2,
+                 use_weight_norm=True, *, device=None, generator=None):
+        super().__init__()
+        k0, k1 = kernel_sizes
+        kw = dict(weight_norm=use_weight_norm, device=device,
+                  generator=generator)
+        self.negative_slope = negative_slope
+        # (stride, padding, reflect padding) of each conv, in order
+        self.specs = [(1, 0, (k0 * k1 - 1) // 2)]
+        layers = [_placeholders(3, {1: Conv1d(in_channels, channels,
+                                              k0 * k1, **kw)})]
+        in_chs = channels
+        for s in downsample_scales:
+            out_chs = min(in_chs * s, max_downsample_channels)
+            layers.append(_placeholders(2, {0: Conv1d(
+                in_chs, out_chs, s * 10 + 1, groups=in_chs // 4, **kw)}))
+            self.specs.append((s, s * 5, 0))
+            in_chs = out_chs
+        out_chs = min(in_chs * 2, max_downsample_channels)
+        layers.append(_placeholders(2, {0: Conv1d(in_chs, out_chs, k0, **kw)}))
+        self.specs.append((1, (k0 - 1) // 2, 0))
+        layers.append(Conv1d(out_chs, out_channels, k1, **kw))
+        self.specs.append((1, (k1 - 1) // 2, 0))
+        self.layers = nn.ModuleList(layers)
+
+    def convs(self):
+        last = len(self.layers) - 1
+        for j, layer in enumerate(self.layers):
+            yield layer if j == last else layer[1 if j == 0 else 0]
+
+    def forward(self, x):
+        """x (B, T, 1) -> list of every layer's output (the last: logits)."""
+        outs = []
+        n = len(self.specs)
+        for i, (conv, (stride, pad, reflect)) in enumerate(
+                zip(self.convs(), self.specs)):
+            if reflect:
+                x = reflect_pad1d(x, reflect)
+            x = conv(x, stride=stride, padding=pad)
+            if i < n - 1:  # the final layer has no activation
+                x = leaky_relu(x, self.negative_slope)
+            outs.append(x)
+        return outs
+
+
+class MelGANMultiScaleDiscriminator(nn.Module):
+    """MelGAN discriminators on the signal and its 2x, 4x, ... average-pooled
+    versions (AvgPool1d with count_include_pad=False between scales)."""
+
+    def __init__(self, in_channels=1, out_channels=1, scales=3,
+                 kernel_sizes=(5, 3), channels=16,
+                 max_downsample_channels=1024, downsample_scales=(4, 4, 4, 4),
+                 pooling_kernel=4, pooling_stride=2, pooling_padding=1,
+                 negative_slope=0.2, use_weight_norm=True, *, device=None,
+                 generator=None):
+        super().__init__()
+        self.pooling = (pooling_kernel, pooling_stride, pooling_padding)
+        self.discriminators = nn.ModuleList(
+            MelGANDiscriminator(
+                in_channels, out_channels, tuple(kernel_sizes), channels,
+                max_downsample_channels, tuple(downsample_scales),
+                negative_slope, use_weight_norm, device=device,
+                generator=generator)
+            for _ in range(scales))
+
+    @classmethod
+    def from_config(cls, params: dict, **kw):
+        """Build from the recipe's `discriminator_params`."""
+        pool = params.get("downsample_pooling_params", {})
+        act = params.get("nonlinear_activation_params", {})
+        return cls(
+            in_channels=params.get("in_channels", 1),
+            out_channels=params.get("out_channels", 1),
+            scales=params.get("scales", 3),
+            kernel_sizes=tuple(params.get("kernel_sizes", (5, 3))),
+            channels=params.get("channels", 16),
+            max_downsample_channels=params.get("max_downsample_channels",
+                                               1024),
+            downsample_scales=tuple(params.get("downsample_scales",
+                                               (4, 4, 4, 4))),
+            pooling_kernel=pool.get("kernel_size", 4),
+            pooling_stride=pool.get("stride", 2),
+            pooling_padding=pool.get("padding", 1),
+            negative_slope=act.get("negative_slope", 0.2),
+            use_weight_norm=params.get("use_weight_norm", True),
+            **kw,
+        )
+
+    def forward(self, x):
+        """x (B, T, 1) -> per scale, the list of its layers' outputs."""
+        outs = []
+        for d in self.discriminators:
+            outs.append(d(x))
+            x = avg_pool1d(x, *self.pooling, count_include_pad=False)
+        return outs

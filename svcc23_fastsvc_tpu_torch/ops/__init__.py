@@ -1,9 +1,11 @@
-"""Ops of the decode path: primitives, resampling, excitation.
+"""Ops: primitives, resampling, excitation, STFT.
 
-The two CUDA kernels' wrappers live in `ops.window_conv` and `ops.sine`.
+The CUDA kernels' wrappers live in `ops.window_conv` (forward, dx, wgrad)
+and `ops.sine`.
 """
 
 from .conv import (  # noqa: F401
+    avg_pool1d,
     conv1d,
     conv_weight,
     fold_weight_norm,
@@ -11,6 +13,7 @@ from .conv import (  # noqa: F401
     l2_normalize,
     leaky_relu,
     linear,
+    reflect_pad1d,
     wn_weight,
 )
 from .resample import nearest_downsample, nearest_resize, nearest_upsample  # noqa: F401

@@ -1,10 +1,8 @@
-"""Convolution and normalisation primitives of the decode path, channels-last.
+"""Convolution, pooling and normalisation primitives, channels-last.
 
 Counterpart of `svcc23_fastsvc_tpu/ops/conv.py`: tensors are (B, T, C) and
-conv weights WIO (K, C_in, C_out), as in the JAX package, so the tests
-compare like with like. Only what the FastSVC generator's forward needs is
-here: stride 1, groups 1, and either a pointwise (K=1) conv or an odd-K
-"same" conv.
+conv weights WIO (K, C_in/groups, C_out), as in the JAX package, so the
+tests compare like with like.
 """
 
 from __future__ import annotations
@@ -12,30 +10,59 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .window_conv import window_conv
+from .window_conv import WindowConv1d, window_conv
+
+# The window-conv kernels are written for the generator's widths, up to its
+# fused FiLM conv's 2 x 192 channels. Wider convs (the MelGAN
+# discriminator's 512-channel layers) go to cuDNN, as the JAX package sends
+# them to XLA's conv (its window-conv gate is 128 channels).
+WINDOW_CONV_MAX_CHANNELS = 384
 
 
-def conv1d(x, weight, bias=None, *, padding: int = 0, dilation: int = 1,
-           input_leaky=None):
-    """1-D conv on (B, T, C_in) with WIO weight (K, C_in, C_out).
+def conv1d(x, weight, bias=None, *, stride: int = 1, padding=0,
+           dilation: int = 1, groups: int = 1, input_leaky=None):
+    """1-D conv on (B, T, C_in) with WIO weight (K, C_in/groups, C_out).
 
-    Odd-K convs with "same" padding (K-1)/2 * dilation go to the window-conv
-    kernel, which applies `input_leaky` to its input as it loads it. K=1
-    convs with no padding are pointwise products and go to torch.matmul, as
-    the JAX package leaves them to XLA.
+    `padding` is an int (symmetric zero pad), a (lo, hi) pair or "VALID".
+    Odd-K, stride-1, ungrouped convs with "same" padding (K-1)/2 * dilation
+    go to the window-conv kernel, which applies `input_leaky` to its input
+    as it loads it; with grad enabled through `WindowConv1d`, whose backward
+    is the window-conv dx and wgrad kernels. K=1 convs with no padding are
+    pointwise products and go to torch.matmul, as the JAX package leaves
+    them to XLA. Every other conv (strided, grouped, unpadded) goes to
+    `F.conv1d`: the JAX package computes those outside any Pallas kernel.
     """
-    K = weight.shape[0]
-    if K == 1 and padding == 0:
-        if input_leaky is not None:
-            x = leaky_relu(x, input_leaky)
-        out = x @ weight[0]
-        return out if bias is None else out + bias
-    if K % 2 == 1 and padding == (K - 1) // 2 * dilation:
-        return window_conv(x, weight, bias, dilation, input_leaky)
-    raise ValueError(
-        f"conv1d takes K=1 or odd-K same-padded convs, got K={K} "
-        f"padding={padding} dilation={dilation}"
-    )
+    if isinstance(padding, str):
+        if padding != "VALID":
+            raise ValueError(f"conv1d padding {padding!r}: want an int, a "
+                             "(lo, hi) pair or 'VALID'")
+        lo = hi = 0
+    elif isinstance(padding, int):
+        lo = hi = padding
+    else:
+        lo, hi = padding
+    K, in_pg, c_out = weight.shape
+    if stride == 1 and groups == 1:
+        if K == 1 and lo == hi == 0:
+            if input_leaky is not None:
+                x = leaky_relu(x, input_leaky)
+            out = x @ weight[0]
+            return out if bias is None else out + bias
+        if (K % 2 == 1 and lo == hi == (K - 1) // 2 * dilation
+                and max(in_pg, c_out) <= WINDOW_CONV_MAX_CHANNELS):
+            x = x.contiguous()
+            if torch.is_grad_enabled():
+                return WindowConv1d.apply(x, weight, bias, dilation,
+                                          input_leaky)
+            return window_conv(x, weight, bias, dilation, input_leaky)
+    if input_leaky is not None:
+        x = leaky_relu(x, input_leaky)
+    if lo != hi:
+        x = F.pad(x, (0, 0, lo, hi))
+        lo = 0
+    out = F.conv1d(x.transpose(1, 2), weight.permute(2, 1, 0), bias,
+                   stride=stride, padding=lo, dilation=dilation, groups=groups)
+    return out.transpose(1, 2)
 
 
 def leaky_relu(x, negative_slope: float = 0.2):
@@ -78,6 +105,20 @@ def instance_norm(x, *, eps: float = 1e-5, axis: int = 1):
     mean = x.mean(dim=axis, keepdim=True)
     var = torch.mean(torch.square(x - mean), dim=axis, keepdim=True)
     return (x - mean) * torch.rsqrt(var + eps)
+
+
+def avg_pool1d(x, kernel_size: int, stride: int, padding: int = 0,
+               count_include_pad: bool = True):
+    """torch.nn.AvgPool1d on (B, T, C)."""
+    out = F.avg_pool1d(x.transpose(1, 2), kernel_size, stride, padding,
+                       count_include_pad=count_include_pad)
+    return out.transpose(1, 2)
+
+
+def reflect_pad1d(x, pad):
+    """Reflection padding on the time axis of (B, T, C)."""
+    lo, hi = (pad, pad) if isinstance(pad, int) else pad
+    return F.pad(x.transpose(1, 2), (lo, hi), mode="reflect").transpose(1, 2)
 
 
 def l2_normalize(x, axis: int = -1, eps: float = 1e-12):

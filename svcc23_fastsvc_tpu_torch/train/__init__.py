@@ -1,1 +1,1 @@
-"""Generator checkpoints in the reference .pkl layout."""
+"""Training: the GAN step, its optimizer, the loop and checkpoints."""

@@ -1,10 +1,20 @@
-"""Generator checkpoints in the reference trainer's `.pkl` layout.
+"""Checkpoints in the reference trainer's `.pkl` layout.
 
-A checkpoint is a `torch.save`d dict with `["model"]["generator"]` (a state
-dict with the reference keys) and `["steps"]`, as the reference trainer
-writes it and `svcc23_fastsvc_tpu/bin/convert_checkpoint.py` reads it.
-Orbax checkpoints of the JAX package are not read here: convert them to
-this layout first.
+A checkpoint is a `torch.save`d dict, as the reference trainer writes it
+and `svcc23_fastsvc_tpu/bin/convert_checkpoint.py` reads it:
+
+    {"model": {"generator": sd, "discriminator": sd},
+     "optimizer": {"generator": ..., "discriminator": ...},
+     "scheduler": {"generator": ..., "discriminator": ...},
+     "steps": int}
+
+State dicts carry the reference keys; the optimizer and scheduler entries
+follow torch's optimizer and StepLR layouts (`train.state.RefRAdam`). A
+training checkpoint also carries "rng": the excitation noise generator's
+state and the batcher's numpy bit-generator state, so that `--resume`
+continues bit for bit. A decode-only checkpoint holds the generator and
+the steps alone. Orbax checkpoints of the JAX package are not read here:
+convert them to this layout first.
 """
 
 from __future__ import annotations
@@ -12,6 +22,19 @@ from __future__ import annotations
 import os
 
 import torch
+
+
+def _cpu_state(module):
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
+def _write(path: str, obj: dict):
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)  # a reader never sees half a checkpoint
 
 
 def load_generator_state(path: str):
@@ -22,8 +45,60 @@ def load_generator_state(path: str):
 
 def save_generator_checkpoint(path: str, generator, steps: int):
     """Write `generator`'s weights in the reference layout (no optimizer)."""
-    d = os.path.dirname(path)
-    if d:
-        os.makedirs(d, exist_ok=True)
-    state = {k: v.detach().cpu() for k, v in generator.state_dict().items()}
-    torch.save({"model": {"generator": state}, "steps": int(steps)}, path)
+    _write(path, {"model": {"generator": _cpu_state(generator)},
+                  "steps": int(steps)})
+
+
+def save_checkpoint(path: str, task, *, batcher_rng=None):
+    """The whole training state of a `train.gan.FastSVCTrainTask`."""
+    g_opt, d_opt = task.g_opt.state_dict(), task.d_opt.state_dict()
+    rng = {"sine": task.rng.get_state() if task.rng is not None else None,
+           "batcher": batcher_rng}
+    _write(path, {
+        "model": {"generator": _cpu_state(task.generator),
+                  "discriminator": _cpu_state(task.discriminator)},
+        "optimizer": {"generator": g_opt["optimizer"],
+                      "discriminator": d_opt["optimizer"]},
+        "scheduler": {"generator": g_opt["scheduler"],
+                      "discriminator": d_opt["scheduler"]},
+        "steps": int(task.step),
+        "rng": rng,
+    })
+
+
+def load_checkpoint(path: str, task, *, params_only: bool = False):
+    """Restore `task` from `path` and return the checkpoint's "rng" entry
+    (None with `params_only`, which loads the weights and nothing else)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    task.generator.load_state_dict(sd["model"]["generator"])
+    task.discriminator.load_state_dict(sd["model"]["discriminator"])
+    if params_only:
+        return None
+    task.g_opt.load_state_dict(sd["optimizer"]["generator"],
+                               sd["scheduler"]["generator"])
+    task.d_opt.load_state_dict(sd["optimizer"]["discriminator"],
+                               sd["scheduler"]["discriminator"])
+    task.step = int(sd["steps"])
+    rng = sd.get("rng") or {}
+    if rng.get("sine") is not None and task.rng is not None:
+        task.rng.set_state(rng["sine"])
+    return rng
+
+
+def checkpoint_path(outdir: str, steps: int) -> str:
+    return os.path.join(outdir, f"checkpoint-{steps}steps.pkl")
+
+
+def latest_checkpoint(outdir: str):
+    """The checkpoint of the most steps under `outdir`, or None."""
+    if not os.path.isdir(outdir):
+        return None
+    found = []
+    for name in os.listdir(outdir):
+        if name.startswith("checkpoint-") and name.endswith("steps.pkl"):
+            try:
+                found.append((int(name[len("checkpoint-"):-len("steps.pkl")]),
+                              name))
+            except ValueError:
+                continue
+    return os.path.join(outdir, max(found)[1]) if found else None

@@ -17,8 +17,13 @@ from svcc23_fastsvc_tpu_torch.ops.sine import (
     sine_excitation_plain,
 )
 from svcc23_fastsvc_tpu_torch.ops.window_conv import (
+    WindowConv1d,
     window_conv,
+    window_conv_dx,
+    window_conv_dx_plain,
     window_conv_plain,
+    window_conv_wgrad,
+    window_conv_wgrad_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -86,6 +91,75 @@ def test_window_conv_kernel_rejects_a_noncontiguous_input(cuda):
     w = torch.zeros((3, 16, 4), device=cuda)
     with pytest.raises(ValueError):
         window_conv(x, w, None, 1, None)
+
+
+# B, T, Cin, Cout, K, dilation, slope: the generator's training convs in
+# small, plus edges (Cin = 1, ragged tiles, K = 5, channels past 64)
+GRAD_CASES = [
+    (2, 1601, 1, 24, 3, 1, 0.2),
+    (2, 1600, 24, 24, 3, 27, 0.2),
+    (2, 321, 48, 48, 3, 9, None),
+    (1, 97, 12, 70, 5, 4, 0.2),
+    (3, 200, 192, 192, 3, 1, 0.2),
+    (2, 100, 144, 192, 3, 1, None),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,Cin,Cout,K,dil,slope", GRAD_CASES)
+def test_window_conv_dx_kernel_matches_plain(cuda, dtype, tol, B, T, Cin,
+                                             Cout, K, dil, slope):
+    x, w, _ = _conv_case(B, T, Cin, Cout, K, seed=T + Cout)
+    g = np.random.default_rng(T).standard_normal((B, T, Cout))
+    x, w, g = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w, g))
+    before = window_conv_dx.launches
+    got = window_conv_dx(g, w, dil, x, slope)
+    torch.cuda.synchronize()
+    assert window_conv_dx.launches == before + 1
+    want = window_conv_dx_plain(g, w, dil, x, slope).float()
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,Cin,Cout,K,dil,slope", GRAD_CASES)
+def test_window_conv_wgrad_kernel_matches_plain(cuda, dtype, tol, B, T, Cin,
+                                                Cout, K, dil, slope):
+    x, _, _ = _conv_case(B, T, Cin, Cout, K, seed=T + Cin)
+    g = np.random.default_rng(T + 1).standard_normal((B, T, Cout))
+    x, g = (torch.from_numpy(a).to(cuda, dtype) for a in (x, g))
+    before = window_conv_wgrad.launches
+    dw, db = window_conv_wgrad(x, g, K, dil, slope)
+    torch.cuda.synchronize()
+    assert window_conv_wgrad.launches == before + 1
+    want_w, want_b = window_conv_wgrad_plain(x, g, K, dil, slope)
+    assert dw.dtype == db.dtype == torch.float32
+    for got, want in ((dw, want_w), (db, want_b)):
+        assert got.shape == want.shape
+        err = (got - want).abs().max().item()
+        assert err <= tol * want.abs().max().item()
+    # a fixed partition and no atomics: the same sums every run
+    dw2, db2 = window_conv_wgrad(x, g, K, dil, slope)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+def test_window_conv_function_on_the_card_matches_the_cpu(cuda):
+    x, w, b = _conv_case(2, 500, 24, 48, 3, seed=11)
+    g = np.random.default_rng(12).standard_normal((2, 500, 48)).astype(
+        np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        args = [torch.from_numpy(a).to(dev).requires_grad_()
+                for a in (x, w, b)]
+        y = WindowConv1d.apply(*args, 9, 0.2)
+        grads = torch.autograd.grad(y, args, torch.from_numpy(g).to(dev))
+        outs.append([t.detach().cpu() for t in (y, *grads)])
+    for got, want in zip(outs[1], outs[0]):
+        err = (got - want).abs().max().item()
+        assert err <= 2e-4 * want.abs().max().item()
 
 
 # Tf > 1024 gives each thread of the prefix scan a run of several frames

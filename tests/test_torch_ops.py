@@ -164,9 +164,17 @@ def test_conv1d_pointwise_matches_jax():
 
 
 def test_conv1d_rejects_convs_outside_the_decode_subset():
+    # convs outside the window-conv subset (here not "same"-padded) now go
+    # to F.conv1d and match the JAX conv; a padding spec conv1d does not
+    # take is still rejected
     x, w, b = _conv_case(1, 20, 4, 4, 3, seed=11)
+    got = tconv.conv1d(torch.from_numpy(x), torch.from_numpy(w),
+                       padding=2).numpy()
+    want = np.asarray(jconv.conv1d(jnp.asarray(x), jnp.asarray(w),
+                                   padding=2))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
-        tconv.conv1d(torch.from_numpy(x), torch.from_numpy(w), padding=2)
+        tconv.conv1d(torch.from_numpy(x), torch.from_numpy(w), padding="SAME")
 
 
 def test_window_conv_raises_off_cpu_instead_of_falling_back():
@@ -174,3 +182,44 @@ def test_window_conv_raises_off_cpu_instead_of_falling_back():
     w = torch.zeros((3, 4, 4), device="meta")
     with pytest.raises(ValueError):
         window_conv(x, w, None, 1, 0.2)
+
+
+# the discriminator's primitives: strided and grouped convs with int,
+# (lo, hi) and "VALID" padding, avg pooling without the padded elements in
+# the count, reflection padding; f32, 1e-5
+@pytest.mark.parametrize("K,stride,padding,groups,cin,cout", [
+    (41, 4, 20, 4, 16, 64),
+    (15, 1, "VALID", 1, 1, 16),
+    (5, 2, (1, 3), 2, 8, 6),
+    (3, 1, 1, 1, 8, 8),
+])
+def test_conv1d_strided_grouped_matches_jax(K, stride, padding, groups, cin,
+                                            cout):
+    r = _rng(12)
+    x = r.standard_normal((2, 97, cin)).astype(np.float32)
+    w = r.standard_normal((K, cin // groups, cout)).astype(np.float32)
+    b = r.standard_normal(cout).astype(np.float32)
+    got = tconv.conv1d(torch.from_numpy(x), torch.from_numpy(w),
+                       torch.from_numpy(b), stride=stride, padding=padding,
+                       groups=groups).numpy()
+    want = np.asarray(jconv.conv1d(jnp.asarray(x), jnp.asarray(w),
+                                   jnp.asarray(b), stride=stride,
+                                   padding=padding, groups=groups))
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("T,k,s,p,include", [
+    (100, 4, 2, 1, False), (33, 4, 2, 1, False), (33, 3, 3, 0, True),
+])
+def test_avg_pool1d_and_reflect_pad1d_match_jax(T, k, s, p, include):
+    x = _rng(13).standard_normal((2, T, 3)).astype(np.float32)
+    got = tconv.avg_pool1d(torch.from_numpy(x), k, s, p,
+                           count_include_pad=include).numpy()
+    want = np.asarray(jconv.avg_pool1d(jnp.asarray(x), k, s, p,
+                                       count_include_pad=include))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    for pad in (7, (2, 5)):
+        np.testing.assert_array_equal(
+            tconv.reflect_pad1d(torch.from_numpy(x), pad).numpy(),
+            np.asarray(jconv.reflect_pad1d(jnp.asarray(x), pad)))
