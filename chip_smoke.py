@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FastSVC decode and training paths on one H100.
+"""Drive the PyTorch port's FastSVC decode and training paths and the B02
+vocoder's synthesis on one H100.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
@@ -24,13 +25,18 @@ Phases, each printed on one line with its elapsed seconds:
 6. profile: under `torch.profiler`, the device time of each kernel of one
    decode batch (f32, bf16) and the device's busy share of the batch's
    wall time; the sine kernels' device time at 400 and 3000 frames.
-7. train step vs CPU: the recipe's generator and MelGAN discriminator at
+7. train step vs CPU (phases 7-9 with cuDNN's deterministic algorithms,
+   as the training CLI sets them; the rest with cuDNN's defaults, as
+   decode and synthesis leave them): the recipe's generator and MelGAN
+   discriminator at
    full width (random weights from a seed), one gen_step and one gan_step,
    each from the seed's weights, on a batch of 2 x 16000 samples with an
    explicit excitation, in f32 on the card and on the CPU (plain versions)
    and in f64 on the CPU: every loss and every G and D gradient of the
    card within 4x the CPU f32's own distance from f64 (plus a margin), and
-   finite updated weights.
+   finite updated weights. Then two gan_steps from one state on the
+   recipe's batch (32 x 16000), f32 and bf16: bit-identical G and D
+   gradients.
 8. train: `Trainer.run` on the recipe's batch (32 x 16000 samples, an
    in-memory dataset in FastSVCDataset's layout), 20 gen_steps then 20
    gan_steps, in bf16 (packed wire) and f32 (f32 wire): finite losses, the
@@ -40,6 +46,17 @@ Phases, each printed on one line with its elapsed seconds:
    checkpoint reloaded into a fresh task.
 9. profile: one bf16 gan_step under `torch.profiler`: device time per
    kernel and the busy share.
+10. the backward kernels' times at the training shapes.
+11. vocoder kernels: the adaptive (dilations 1, 8) and fixed (1, 512) block
+   kernels against their plain versions at the vocoder's full widths on
+   8 x 24000 samples, f32 and bf16, with their times.
+12. vocoder: the B02 HN-uSFGAN generator at full width (20 adaptive, 5 noise
+   and 30 filter blocks, random weights from a seed, weight norm folded)
+   vocodes 8 utterances of 1 s through `bin/synthesize_b02.py::vocode` in
+   f32 and bf16: exactly 20 adaptive and 35 fixed kernel launches per
+   forward, finite output, utterances 0 and 7 held against the same module
+   on the CPU (plain versions; bf16 within twice the CPU's own bf16-vs-f32
+   distance), audio-s/s by CUDA events and the busy share.
 
 The line before the last is the kernels' JSON; the last line is
 `{"ok": true, "device": {...}}`, printed only when every phase passed. A
@@ -57,7 +74,7 @@ import sys
 import tempfile
 import time
 
-WATCHDOG_S = 300
+WATCHDOG_S = 1100
 faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
 
 import numpy as np  # noqa: E402
@@ -101,6 +118,27 @@ GRAD_SHAPES = [
     ("up block 1 up_conv", 200, 192, 192, 1, 0.2),
     ("up block 1 conv_first", 100, 144, 192, 1, None),
 ]
+# the B02 vocoder (the JAX package's default HNUSFGANGenerator, as its bench
+# runs it): 24 kHz, hop 160, batch 8 x 1 s; f0 80-400 Hz, 20% unvoiced
+VB, VTF, VHOP, VSR = 8, 150, 160, 24000
+VOC_CONFIG = {
+    "sampling_rate": VSR,
+    "hop_size": VHOP,
+    "aux_context_window": 2,
+    "dense_factor": 4,
+    "generator_params": {"upsample_params": {"upsample_scales": [5, 4, 4, 2]},
+                         "aux_channels": 62},
+    "signal_generator": {"sine_amp": 0.1, "noise_amp": 0.003,
+                         "signal_types": ["sine", "noise"]},
+}
+# (kernel, dilation) rows timed at the vocoder's shapes
+PD_ROWS = [("adaptive", 1), ("adaptive", 8), ("fixed", 1), ("fixed", 512)]
+VOC_UTTS = (0, 7)  # held against the CPU
+# card vs CPU in bf16: twice the CPU's own bf16-vs-f32 distance; the two
+# bf16 runs differ by rounding orders about as much as each differs from
+# f32 (sqrt(2) for independent errors of one size), so 2 leaves a margin
+BF16_FACTOR = 2.0
+
 # conf/fastsvc.yaml, the recipe's 16 kHz generator and excitation
 CONFIG = {
     "sampling_rate": SR,
@@ -233,6 +271,186 @@ def recording(opt_step, log):
         log.append([g.detach().double().cpu() for g in grads])
         return opt_step(grads)
     return run
+
+
+def vocoder_phases(dev, phases):
+    """Phases 11 and 12: the vocoder kernels' rows, and the launches of
+    every kernel in the vocoder's main path."""
+    from svcc23_fastsvc_tpu_torch.bin.synthesize_b02 import (
+        signal_generator,
+        vocode,
+    )
+    from svcc23_fastsvc_tpu_torch.config import build_vocoder
+    from svcc23_fastsvc_tpu_torch.dsp.f0 import dilated_factor
+    from svcc23_fastsvc_tpu_torch.models.hnusfgan import PD_HALO_FS
+    from svcc23_fastsvc_tpu_torch.ops.pd_block import (
+        frame_shifts,
+        pd_adaptive_block,
+        pd_adaptive_block_plain,
+        pd_block_halo,
+        pd_fixed_block,
+        pd_fixed_block_plain,
+    )
+    from svcc23_fastsvc_tpu_torch.ops.sine import sine_excitation
+
+    t = time.perf_counter()
+    init = torch.Generator().manual_seed(11)
+    v32 = build_vocoder(VOC_CONFIG, generator=init).fold_weight_norm_()
+    v32 = v32.to(dev).eval()
+    v16 = copy.deepcopy(v32).to(torch.bfloat16)
+    sg = signal_generator(VOC_CONFIG)
+    r = np.random.default_rng(12)
+    f0 = np.where(r.random((VB, VTF)) > 0.2, r.uniform(80, 400, (VB, VTF)),
+                  0.0).astype(np.float32)
+    df = np.stack([np.repeat(dilated_factor(f, VSR, 4), VHOP) for f in f0])
+    aux = r.standard_normal((VB, VTF + 4, 62)).astype(np.float32)
+    f0_d, df_d, aux_d = (torch.from_numpy(a).to(dev) for a in (
+        f0[:, :, None], df.astype(np.float32), aux))
+
+    # 11. the block kernels at the vocoder's shapes, on its own weights
+    rows, cases = [], []
+    T = VTF * VHOP
+    blocks = {("adaptive", dil): blk for dil, blk in zip(
+        v32.harmonic_network.dilations, v32.harmonic_network.conv_dilated)}
+    blocks.update({("fixed", dil): blk for dil, blk in zip(
+        v32.filter_network.dilations, v32.filter_network.conv_dilated)})
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((VB, T, 64), generator=gen, device=dev).to(dtype)
+        c = torch.randn((VB, T, 62), generator=gen, device=dev).to(dtype)
+        for kind, dil in PD_ROWS:
+            params = {k: {n: v.to(dtype) for n, v in p.items()}
+                      for k, p in blocks[kind, dil].block_params().items()}
+            if kind == "adaptive":
+                shifts = frame_shifts(df_d, dil, VHOP,
+                                      pd_block_halo(dil, PD_HALO_FS, hop=VHOP))
+                args, kw = (x, c, shifts, params), {"hop": VHOP}
+                fn, plain = pd_adaptive_block, pd_adaptive_block_plain
+                extra = shifts.numel() * 4
+            else:
+                args, kw = (x, c, params), {"dilation": dil}
+                fn, plain = pd_fixed_block, pd_fixed_block_plain
+                extra = 0
+            y, ref = fn(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            require(torch.isfinite(y).all().item(),
+                    f"pd_{kind}_block d={dil}: non-finite")
+            require(err <= TOL_CONV[dtype] * scale,
+                    f"pd_{kind}_block d={dil} {dtype}: max err {err} > "
+                    f"{TOL_CONV[dtype]} x {scale}")
+            wbytes = sum(v.numel() for p in params.values()
+                         for v in p.values()) * x.element_size()
+            nbytes = (x.numel() + c.numel() + y.numel()) * x.element_size() \
+                + wbytes + extra
+            ops = 2 * VB * T * ((3 * 64 + 62) * 128 + 64 * 64)
+            b_ms, b_by = bound(nbytes, ops, dtype)
+            cases.append((kind, dil, dtype))
+            rows.append({
+                "name": f"pd_{kind}_block {str(dtype)[6:]} ({VB},{T},64|62)"
+                        f"->64 d={dil}",
+                "route": "cuda",
+                "source": "svcc23_fastsvc_tpu_torch/csrc/pd_block.cu",
+                "replaces": "svcc23_fastsvc_tpu/ops/pallas_pd_block.py:"
+                            + ("506" if kind == "adaptive" else "222"),
+                "max_abs_err": err,
+                "ms": cuda_ms(lambda: fn(*args, **kw)),
+                "plain_ms": cuda_ms(lambda: plain(*args, **kw), iters=5,
+                                    warmup=1),
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": None,
+            })
+            k = rows[-1]
+            say(f"{k['name']}: max err {err:.3e} (scale {scale:.3e}); "
+                f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library none, "
+                f"bound {k['bound_ms']:.4f} by {k['bound_by']})")
+        del x, c
+    phases["vocoder_kernels_s"] = time.perf_counter() - t
+
+    # 12. the vocoder's main path: 8 x 1 s, f32 then bf16
+    t = time.perf_counter()
+    counters = (pd_adaptive_block, pd_fixed_block, sine_excitation)
+    for k in counters:
+        k.launches = 0
+    rng = torch.Generator(device=dev).manual_seed(14)
+    ys, states = {}, {}
+    for dtype, voc in ((torch.float32, v32), (torch.bfloat16, v16)):
+        states[dtype] = rng.get_state()
+        before = [k.launches for k in counters]
+        ys[dtype] = vocode(voc, sg, f0_d, aux_d, df_d, generator_rng=rng)
+        torch.cuda.synchronize()
+        rose = [k.launches - b for k, b in zip(counters, before)]
+        require(rose == [20, 35, 1], f"vocoder {dtype} launched {rose} "
+                                     "(adaptive, fixed, sine); want "
+                                     "[20, 35, 1]")
+    launches = {"pd_adaptive_block": pd_adaptive_block.launches,
+                "pd_fixed_block": pd_fixed_block.launches,
+                "sine_excitation": sine_excitation.launches}
+    say(f"vocoder main path: launches {launches}")
+    for dtype, y in ys.items():
+        require(tuple(y.shape) == (VB, T, 1), f"vocoder output {y.shape}")
+        require(torch.isfinite(y).all().item(), f"vocoder {dtype}: not finite")
+
+    # the same module on the CPU (plain versions) on utterances 0 and 7, fed
+    # the excitation the card drew (noise from the card's generator)
+    sel = list(VOC_UTTS)
+    cpu_y, voc_err = {}, {}
+    for dtype, voc in ((torch.float32, v32), (torch.bfloat16, v16)):
+        replay = torch.Generator(device=dev)
+        replay.set_state(states[dtype])
+        x = sg(f0_d.float(), replay)[sel].to(dtype).cpu()
+        with torch.inference_mode():
+            y_cpu, _ = copy.deepcopy(voc).cpu()(x, aux_d[sel].to(dtype).cpu(),
+                                                df_d[sel].cpu())
+        cpu_y[dtype] = y_cpu.float()
+    own = ((cpu_y[torch.bfloat16] - cpu_y[torch.float32]).abs().max().item()
+           / cpu_y[torch.float32].abs().max().item())
+    for dtype in ys:
+        ref = cpu_y[dtype]
+        err = (ys[dtype][sel].cpu() - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        limit = (TOL_DECODE[torch.float32] if dtype == torch.float32
+                 else BF16_FACTOR * own)
+        voc_err[str(dtype)[6:]] = {"max_abs_err": err, "max_abs_y": scale,
+                                   "err / max |y|": err / scale,
+                                   "limit": limit}
+        require(err <= limit * scale, f"vocoder {dtype} vs CPU: max err "
+                                      f"{err} > {limit} x {scale}")
+    say(f"vocoder vs the same module on the CPU (utterances {sel}): "
+        f"{voc_err}; CPU bf16 vs CPU f32: {own:.4e} of max |y|")
+    phases["vocoder_s"] = time.perf_counter() - t
+
+    # timings: whole batches by CUDA events, then the busy share
+    t = time.perf_counter()
+    rates = {}
+    for dtype, voc in ((torch.float32, v32), (torch.bfloat16, v16)):
+        def batch(voc=voc):
+            vocode(voc, sg, f0_d, aux_d, df_d, generator_rng=rng)
+        ms = cuda_ms(batch, iters=5, warmup=2)
+        t_wall = time.perf_counter()
+        for _ in range(3):
+            batch()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_wall) * 1e3 / 3
+        per_kernel = device_ms(batch)
+        busy = sum(per_kernel.values())
+        rates[str(dtype)[6:]] = {"batch_ms": ms,
+                                 "audio_s_per_s": VB * T / VSR / ms * 1e3,
+                                 "wall_ms": wall_ms, "kernels_ms": busy,
+                                 "busy": busy / wall_ms}
+        say(f"profile vocoder {str(dtype)[6:]}: wall {wall_ms:.3f} ms/batch, "
+            f"kernels {busy:.3f} ms, busy {busy / wall_ms:.1%}")
+        for kname, kms in list(per_kernel.items())[:10]:
+            say(f"  {kms:8.4f} ms {kms / busy:6.1%}  {kname[:110]}")
+    say(f"vocoder {VB} x {T / VSR:.0f} s: {rates}")
+    phases["vocoder_timings_s"] = time.perf_counter() - t
+    for row, (kind, dil, dtype) in zip(rows, cases):
+        row["launches"] = launches[f"pd_{kind}_block"]
+        row["launches_by_path"] = {"decode": 0, "train": 0,
+                                   "vocoder": row["launches"]}
+    return rows, launches
 
 
 def main():
@@ -491,14 +709,18 @@ def main():
             f"{kname} {ms * 1e3:.2f} us" for kname, ms in per_kernel.items()))
     phases["profile_s"] = time.perf_counter() - t
 
-    # 7. one training step of each phase on the card against the CPU
+    # 7. one training step of each phase on the card against the CPU;
+    # phases 7-9 run with cuDNN's deterministic algorithms, as the
+    # training CLI does (decode and synthesis leave cuDNN at its defaults)
     t = time.perf_counter()
+    from svcc23_fastsvc_tpu_torch.bin.common import deterministic_cudnn
     from svcc23_fastsvc_tpu_torch.config import build_train_task
     from svcc23_fastsvc_tpu_torch.data.collate import FastSVCBatcher
     from svcc23_fastsvc_tpu_torch.data.wire import to_device
     from svcc23_fastsvc_tpu_torch.train.checkpoint import load_checkpoint
     from svcc23_fastsvc_tpu_torch.train.loop import Trainer
 
+    deterministic_cudnn()
     r = np.random.default_rng(5)
     tf2 = 16000 // HOP
     pbatch = {
@@ -582,11 +804,37 @@ def main():
         f"gen_step and gan_step each from the seed's weights): loss rel "
         f"errs (card, cpu f32) {loss_rows}")
     say(f"  gradients: {grad_rows}; card losses {losses['card f32']}")
+
+    # two gan_steps from one state give the same gradients, bit for bit
+    items = recipe_dataset()
+    rbatch = to_device(FastSVCBatcher(items, batch_size=TB,
+                                      batch_length=16000, hop_size=HOP,
+                                      seed=3).sample_batch(), dev)
+    repeat = {}
+    for dt_name in ("float32", "bfloat16"):
+        runs = []
+        for _ in range(2):
+            task = build_train_task({**TRAIN_CONFIG, "compute_dtype": dt_name},
+                                    device=dev, seed=3)
+            log = []
+            task.g_opt.step = recording(task.g_opt.step, log)
+            task.d_opt.step = recording(task.d_opt.step, log)
+            task.gan_step(rbatch)
+            runs.append(log)
+            del task
+        differ = {who: sum(not torch.equal(a, b) for a, b in zip(ga, gb))
+                  for who, ga, gb in zip(("G", "D"), *runs)}
+        repeat[dt_name] = differ
+        require(differ == {"G": 0, "D": 0},
+                f"gan_step {dt_name} twice from one state: gradient tensors "
+                f"that differ {differ}")
+    say(f"gan_step twice from one state (B={TB} x 16000): gradient tensors "
+        f"that differ {repeat} (cudnn.deterministic "
+        f"{torch.backends.cudnn.deterministic})")
     phases["train_vs_cpu_s"] = time.perf_counter() - t
 
     # 8. the recipe's batch through Trainer.run, both phases, bf16 and f32
     t = time.perf_counter()
-    items = recipe_dataset()
     counters = (window_conv, window_conv_dx, window_conv_wgrad,
                 sine_excitation)
     for c in counters:
@@ -687,7 +935,9 @@ def main():
     del task
     phases["train_profile_s"] = time.perf_counter() - t
 
-    # 10. the backward kernels' times at the training shapes
+    # 10. the backward kernels' times at the training shapes, beside cuDNN's
+    # at its defaults (its deterministic wgrad is far slower at Cin = 1)
+    torch.backends.cudnn.deterministic = False
     t = time.perf_counter()
     for row in kernels:
         row["launches_by_path"] = {
@@ -744,6 +994,13 @@ def main():
                 f"library {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} "
                 f"by {k['bound_by']})")
     phases["grad_timings_s"] = time.perf_counter() - t
+
+    # 11-12. the B02 vocoder, with cuDNN at its defaults as in synthesize_b02
+    voc_rows, voc_launches = vocoder_phases(dev, phases)
+    for row in kernels:
+        row["launches_by_path"]["vocoder"] = voc_launches.get(
+            row["name"].split(" ")[0], 0)
+    kernels += voc_rows
     phases["total_s"] = time.perf_counter() - _T0
     say(f"phases: {phases}")
 

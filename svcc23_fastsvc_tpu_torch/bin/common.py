@@ -1,10 +1,12 @@
-"""Shared CLI helpers: logging, speaker ids, WAV output."""
+"""Shared CLI helpers: logging, TF32 off, deterministic cuDNN for
+training, speaker ids, WAV output."""
 
 from __future__ import annotations
 
 import logging
 
 import numpy as np
+import torch
 from scipy.io import wavfile
 
 
@@ -17,6 +19,22 @@ def setup_logging(verbose: int = 1):
         format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s",
         force=True,
     )
+
+
+def disable_tf32():
+    """Keep f32 matmuls and cuDNN convs in full f32 (PyTorch lets cuDNN use
+    TF32 by default): the port's f32 contract. bf16 compute never uses
+    TF32, so nothing is lost there."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def deterministic_cudnn():
+    """Use cuDNN's deterministic algorithms, as training does: its default
+    ones sum in a run-dependent order, and two f32 steps from one state gave
+    different G and D gradients on the H100 (the JAX step gives equal
+    bits). Synthesis leaves cuDNN at its defaults."""
+    torch.backends.cudnn.deterministic = True
 
 
 def write_wav(path: str, audio, sr: int):

@@ -32,7 +32,7 @@ from ..data.dataset import FastSVCDataset
 from ..data.hdf5 import read_hdf5
 from ..dsp.f0 import F0Statistics
 from ..train.checkpoint import load_generator_state
-from .common import setup_logging, utt_speaker, write_wav
+from .common import disable_tf32, setup_logging, utt_speaker, write_wav
 
 
 # utterances are padded to a multiple of this many frames and synthesized
@@ -181,6 +181,7 @@ def main(argv=None):
     parser.add_argument("--verbose", type=int, default=1)
     args = parser.parse_args(argv)
     setup_logging(args.verbose)
+    disable_tf32()
     decode(
         args.dumpdir, args.checkpoint, args.outdir,
         f0_stats_dir=args.f0_stats_dir, spk_emb_file=args.spk_emb_file,

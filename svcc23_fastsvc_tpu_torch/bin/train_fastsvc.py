@@ -24,7 +24,7 @@ from ..config import build_train_task, dump_config, load_config
 from ..data.collate import FastSVCBatcher
 from ..data.dataset import FastSVCDataset
 from ..train.loop import Trainer
-from .common import setup_logging
+from .common import deterministic_cudnn, disable_tf32, setup_logging
 
 
 def main(argv=None):
@@ -43,6 +43,8 @@ def main(argv=None):
     parser.add_argument("--verbose", type=int, default=1)
     args = parser.parse_args(argv)
     setup_logging(args.verbose)
+    disable_tf32()
+    deterministic_cudnn()  # a step repeats bit for bit; --resume is exact
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -1,12 +1,13 @@
-"""Carry FastSVC weights from the JAX package's layout to the port.
+"""Carry weights from the JAX package's layout to the port.
 
-`generator_state_dict_from_jax` and `melgan_msd_state_dict_from_jax` are the
-inverses of the JAX package's `compat/torch_weights.py::
-convert_fastsvc_generator` and `convert_melgan_msd`: each takes a JAX param
-pytree as numpy arrays, either in weight-norm form ({"v", "g", "b"} leaves,
-WIO v) or folded ({"w", "b"}), and returns a state dict with the reference
-torch keys that `models.fastsvc.FastSVCGenerator` or
-`MelGANMultiScaleDiscriminator` loads (built with `use_weight_norm`
+`generator_state_dict_from_jax`, `melgan_msd_state_dict_from_jax` and
+`hnusfgan_state_dict_from_jax` are the inverses of the JAX package's
+`compat/torch_weights.py::convert_fastsvc_generator`, `convert_melgan_msd`
+and `convert_hnusfgan`: each takes a JAX param pytree as numpy arrays,
+either in weight-norm form ({"v", "g", "b"} leaves, WIO v) or folded
+({"w", "b"}), and returns a state dict with the reference torch keys that
+`models.fastsvc.FastSVCGenerator`, `MelGANMultiScaleDiscriminator` or
+`models.hnusfgan.HNUSFGANGenerator` loads (built with `use_weight_norm`
 matching the form). No JAX import: the arrays only need `numpy.asarray`.
 """
 
@@ -71,4 +72,40 @@ def melgan_msd_state_dict_from_jax(params) -> dict:
             # layer 0 sits after its ReflectionPad1d; the last is bare
             _conv(sd, f"{base}.1" if j == 0 else base if j == last
                   else f"{base}.0", p)
+    return sd
+
+
+def _time_conv2d(sd, prefix, p):
+    """A WIO (2s+1, 1, 1) time kernel as the reference's Conv2d weight
+    (1, 1, 1, 2s+1)."""
+    if "v" in p:
+        sd[f"{prefix}.weight_g"] = _t(np.asarray(p["g"]).reshape(1, 1, 1, 1))
+        sd[f"{prefix}.weight_v"] = _t(np.asarray(p["v"]).reshape(1, 1, 1, -1))
+    else:
+        sd[f"{prefix}.weight"] = _t(np.asarray(p["w"]).reshape(1, 1, 1, -1))
+
+
+_BLOCK_KEYS = {"convP": "convP", "convC": "convC", "convF": "convF",
+               "conv": "conv", "aux": "conv1x1_aux", "out": "conv1x1_out",
+               "skip": "conv1x1_skip"}
+
+
+def hnusfgan_state_dict_from_jax(params) -> dict:
+    """JAX HNUSFGANGenerator params -> the port's `state_dict`."""
+    sd = {}
+    _conv(sd, "conv_first_sine", params["conv_first_sine"])
+    _conv(sd, "conv_first_noise", params["conv_first_noise"])
+    up = params["upsample"]
+    _conv(sd, "upsample_net.conv_in", up["conv_in"])
+    for i, p in enumerate(up["up_convs"]):
+        _time_conv2d(sd, f"upsample_net.upsample.up_layers.{2 * i + 1}", p)
+    for net in ("harmonic", "noise", "filter"):
+        for i, blk in enumerate(params[net]["blocks"]):
+            for key, p in blk.items():
+                _conv(sd, f"{net}_network.conv_dilated.{i}.{_BLOCK_KEYS[key]}",
+                      p)
+    for i, p in enumerate(params["periodicity"]["layers"]):
+        _conv(sd, f"periodicity_estimator.layers.{2 * i}", p)
+    _conv(sd, "conv_last.1", params["last1"])
+    _conv(sd, "conv_last.3", params["last2"])
     return sd

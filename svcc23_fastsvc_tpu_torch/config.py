@@ -1,8 +1,10 @@
 """YAML experiment config: load, dump, and build the models and the train task.
 
 Counterpart of `svcc23_fastsvc_tpu/config.py` for the keys of the recipe's
-conf/fastsvc.yaml that decode and training read. The merged config is
-dumped into the experiment dir as config.yml, which decode reads back.
+conf/fastsvc.yaml that decode and training read, and of
+`svcc23_fastsvc_tpu/bin/synthesize_b02.py::build_vocoder` for the B02
+vocoder's config.yml. The merged FastSVC config is dumped into the
+experiment dir as config.yml, which decode reads back.
 `yaml` is imported only when a file is read or written, so the package
 imports where PyYAML is missing.
 """
@@ -112,6 +114,33 @@ def build_signal_generator(cfg: dict):
         signal_types=tuple(sg.get("signal_types", ["sine"])),
         sine_f0_type=sg.get("sine_f0_type", "f0"),
     )
+
+
+_VOCODER_NETS = {
+    "harmonic_network_params": "harmonic_params",
+    "noise_network_params": "noise_params",
+    "filter_network_params": "filter_params",
+}
+
+
+def build_vocoder(cfg: dict, *, device=None, generator=None, **kw):
+    """HNUSFGANGenerator from a vocoder config's `generator_params` (the
+    reference's key names); extra keywords go to it. The dilation factors
+    of the pipeline are frame-constant, so `pd_frame_hop` is `hop_size`."""
+    from .models.hnusfgan import HNUSFGANGenerator
+
+    gp = dict(cfg.get("generator_params", {}))
+    for src, dst in _VOCODER_NETS.items():
+        if src in gp:
+            kw[dst] = gp[src]
+    for k in ("residual_channels", "gate_channels", "skip_channels",
+              "aux_channels", "aux_context_window", "out_channels"):
+        if k in gp:
+            kw[k] = gp[k]
+    if "upsample_params" in gp:
+        kw["upsample_scales"] = tuple(gp["upsample_params"]["upsample_scales"])
+    kw["pd_frame_hop"] = cfg.get("hop_size", 0)
+    return HNUSFGANGenerator(**kw, device=device, generator=generator)
 
 
 def parse_compute_dtype(dtype_name):

@@ -1,4 +1,5 @@
-"""Log-F0 conversion between speakers (decode's F0 mean shift)."""
+"""F0 helpers: the log-F0 conversion between speakers (decode's F0 mean
+shift) and the vocoder's pitch-dependent dilation factors."""
 
 from __future__ import annotations
 
@@ -18,3 +19,14 @@ class F0Statistics:
             + tarf0stats[0]
         )
         return cvf0
+
+
+def dilated_factor(batch_f0, fs: int, dense_factor: int):
+    """Pitch-dependent dilation factors fs / (f0 * dense_factor), in f64,
+    unvoiced frames taking 1 (`svcc23_fastsvc_tpu/dsp/f0.py::
+    dilated_factor`)."""
+    f0 = np.asarray(batch_f0, dtype=np.float64).copy()
+    f0[f0 == 0] = fs / dense_factor
+    factors = np.ones(f0.shape) * fs / f0 / dense_factor
+    factors[factors <= 0] = 1
+    return factors

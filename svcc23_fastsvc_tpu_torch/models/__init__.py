@@ -8,3 +8,4 @@ from .fastsvc import (  # noqa: F401
     MelGANMultiScaleDiscriminator,
     UpsampleBlock,
 )
+from .hnusfgan import HNUSFGANGenerator  # noqa: F401

@@ -56,33 +56,38 @@ class Conv1d(nn.Module):
     """
 
     def __init__(self, in_channels, out_channels, kernel_size, *, groups=1,
-                 weight_norm=True, device=None, generator=None):
+                 bias=True, weight_norm=True, device=None, generator=None):
         super().__init__()
         in_pg = in_channels // groups
         bound = 1.0 / math.sqrt(kernel_size * in_pg)
         w = _uniform((out_channels, in_pg, kernel_size), bound, device,
                      generator)
-        b = _uniform((out_channels,), bound, device, generator)
         if weight_norm:
             self.weight_g = nn.Parameter(
                 torch.sqrt(torch.sum(w * w, dim=(1, 2), keepdim=True)))
             self.weight_v = nn.Parameter(w)
         else:
             self.weight = nn.Parameter(w)
-        self.bias = nn.Parameter(b)
+        self.bias = (nn.Parameter(_uniform((out_channels,), bound, device,
+                                           generator))
+                     if bias else None)
         self.kernel_size = kernel_size
         self.groups = groups
 
     def wio(self):
         """Effective weight as a WIO (K, C_in, C_out) view."""
-        if "weight" in self._parameters:
+        if self.folded:
             return self.weight.permute(2, 1, 0)
         return conv_weight({"v": self.weight_v.permute(2, 1, 0),
                             "g": self.weight_g.reshape(-1)})
 
+    @property
+    def folded(self) -> bool:
+        return "weight" in self._parameters
+
     def fold_weight_norm_(self):
         """Replace weight_g/weight_v by the folded `weight` (remove_weight_norm)."""
-        if "weight" in self._parameters:
+        if self.folded:
             return
         with torch.no_grad():
             w = self.wio().permute(2, 1, 0).contiguous()

@@ -8,6 +8,7 @@ from .conv import (  # noqa: F401
     avg_pool1d,
     conv1d,
     conv_weight,
+    edge_pad1d,
     fold_weight_norm,
     instance_norm,
     l2_normalize,

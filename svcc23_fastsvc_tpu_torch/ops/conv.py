@@ -121,6 +121,16 @@ def reflect_pad1d(x, pad):
     return F.pad(x.transpose(1, 2), (lo, hi), mode="reflect").transpose(1, 2)
 
 
+def edge_pad1d(x, pad: int):
+    """Edge (replicate) padding on the time axis of (B, T, C): jnp.pad's
+    mode="edge", torch's padding_mode="replicate"."""
+    if pad == 0:
+        return x
+    B, _, C = x.shape
+    return torch.cat([x[:, :1].expand(B, pad, C), x,
+                      x[:, -1:].expand(B, pad, C)], dim=1)
+
+
 def l2_normalize(x, axis: int = -1, eps: float = 1e-12):
     """torch F.normalize semantics: x / max(||x||, eps)."""
     norm = torch.sqrt(torch.sum(torch.square(x), dim=axis, keepdim=True))

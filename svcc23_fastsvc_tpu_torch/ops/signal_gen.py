@@ -1,11 +1,12 @@
 """NSF-style excitation signal generation.
 
-Counterpart of `svcc23_fastsvc_tpu/ops/signal_gen.py` for the "sine"
-signal type, the one the FastSVC recipe uses: frame-rate F0 (B, T', 1)
-becomes a sample-rate excitation (B, T'*hop, 1). The sine goes through the
-`sine_excitation` kernel on the card; V/UV-gated Gaussian noise comes from
-the caller's `torch.Generator` (set `noise_amp=0` for a deterministic
-signal).
+Counterpart of `svcc23_fastsvc_tpu/ops/signal_gen.py`: frame-rate F0
+(B, T', 1) becomes a sample-rate excitation (B, T'*hop, C), one channel per
+signal type: "sine" (the FastSVC recipe's only type), "noise" (standard
+Gaussian noise, the B02 vocoder's second channel) and "uv" (the V/UV flag).
+The sine goes through the `sine_excitation` kernel on the card; all noise,
+the sine's V/UV-gated noise floor included, comes from the caller's
+`torch.Generator` (set `noise_amp=0` for a deterministic sine).
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ def continuous_f0(f0):
 class SignalGenerator:
     """Builds generator input excitation from frame-rate F0.
 
-    Call with f0 (B, T_frames, 1); returns (B, T_frames*hop, 1).
+    Call with f0 (B, T_frames, 1); returns (B, T_frames*hop, C), C =
+    len(signal_types), the channels drawn in that order from one generator.
     sine_f0_type "f0" gates the sine by V/UV; "contf0" drives an ungated
     sine from the continuous-F0 track.
     """
@@ -65,14 +67,27 @@ class SignalGenerator:
     sine_f0_type: str = "f0"
 
     def __post_init__(self):
-        if tuple(self.signal_types) != ("sine",):
-            raise ValueError(
-                f"only signal_types ('sine',) is ported, got {self.signal_types}")
+        for t in self.signal_types:
+            if t not in ("sine", "noise", "uv"):
+                raise ValueError(f"unsupported signal type: {t}")
         if self.sine_f0_type not in ("f0", "contf0"):
             raise ValueError(f"unsupported sine_f0_type: {self.sine_f0_type}")
 
     def __call__(self, f0, generator: "torch.Generator | None" = None):
-        return self.sinusoid(f0, generator)
+        outs = []
+        for typ in self.signal_types:
+            if typ == "sine":
+                outs.append(self.sinusoid(f0, generator))
+            elif typ == "noise":
+                outs.append(self.random_noise(f0, generator))
+            else:
+                outs.append(self.vuv_binary(f0))
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+
+    def random_noise(self, f0, generator=None):
+        B, T, _ = f0.shape
+        return torch.randn((B, T * self.hop_size, 1), generator=generator,
+                           dtype=f0.dtype, device=f0.device)
 
     def sinusoid(self, f0, generator=None):
         src_f0 = continuous_f0(f0) if self.sine_f0_type == "contf0" else f0

@@ -43,6 +43,21 @@ def load_generator_state(path: str):
     return sd["model"]["generator"], int(sd.get("steps", 0))
 
 
+def load_vocoder(path: str, cfg: dict, *, device="cpu", dtype=None):
+    """(HN-uSFGAN generator, steps) from a reference-layout checkpoint: built
+    from `cfg` (`config.build_vocoder`), weight norm folded, in eval mode on
+    `device` with parameters in `dtype` (default f32)."""
+    from ..config import build_vocoder
+
+    sd, steps = load_generator_state(path)
+    wn = any(k.endswith(".weight_v") for k in sd)
+    voc = build_vocoder(cfg, use_weight_norm=wn)
+    voc.load_state_dict(sd)
+    voc.fold_weight_norm_()
+    voc.to(device=device, dtype=dtype or torch.float32).eval()
+    return voc, steps
+
+
 def save_generator_checkpoint(path: str, generator, steps: int):
     """Write `generator`'s weights in the reference layout (no optimizer)."""
     _write(path, {"model": {"generator": _cpu_state(generator)},

@@ -12,6 +12,14 @@ import pytest
 import torch
 
 from svcc23_fastsvc_tpu_torch.models.fastsvc import FastSVCGenerator
+from svcc23_fastsvc_tpu_torch.models.hnusfgan import HNUSFGANGenerator
+from svcc23_fastsvc_tpu_torch.ops.pd_block import (
+    pd_adaptive_block,
+    pd_adaptive_block_plain,
+    pd_block_halo,
+    pd_fixed_block,
+    pd_fixed_block_plain,
+)
 from svcc23_fastsvc_tpu_torch.ops.sine import (
     sine_excitation,
     sine_excitation_plain,
@@ -193,3 +201,186 @@ def test_generator_on_the_card_matches_the_cpu(cuda):
     # 3 per down block x 2 chains x 2, 3 FiLM + 6 up convs x 2 blocks
     assert window_conv.launches - before == 12 + 6 + 12
     assert (got.cpu() - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+
+def _block_weights(kind, R, G, A, seed, strided):
+    """Block params as WIO weights: contiguous, or (strided) the permuted
+    views of torch-layout (O, I, K) parameters the vocoder passes."""
+    r = np.random.default_rng(seed)
+
+    def conv(K, cin, cout, bias=True):
+        w = r.standard_normal((cout, cin, K)) / np.sqrt(K * cin)
+        w = torch.from_numpy(w.astype(np.float32))
+        p = {"w": w.permute(2, 1, 0) if strided
+             else w.permute(2, 1, 0).contiguous()}
+        if bias:
+            p["b"] = torch.from_numpy(
+                (0.1 * r.standard_normal(cout)).astype(np.float32))
+        return p
+
+    if kind == "fixed":
+        p = {"conv": conv(3, R, G)}
+    else:
+        p = {k: conv(1, R, G) for k in ("convC", "convP", "convF")}
+    p["aux"] = conv(1, A, G, bias=False)
+    p["out"] = conv(1, G // 2, R)
+    return p
+
+
+def _to(params, device, dtype):
+    return {k: {n: t.to(device, dtype) for n, t in v.items()}
+            for k, v in params.items()}
+
+
+def _block_inputs(B, T, R, A, seed):
+    r = np.random.default_rng(seed)
+    x = torch.from_numpy(r.standard_normal((B, T, R)).astype(np.float32))
+    c = torch.from_numpy(r.standard_normal((B, T, A)).astype(np.float32))
+    return x, c
+
+
+def _close(got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+DTYPES = [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)]
+
+
+# B, T, R, G, A, hop, dilation, shift range, strided weights
+ADAPTIVE_CASES = [
+    (2, 3200, 64, 128, 62, 160, 4, (20, 140), True),  # vocoder widths
+    (2, 3200, 16, 32, 10, 160, 1, (0, 40), False),
+    (1, 2000, 8, 16, 10, 100, 2, (0, 30), True),
+    (2, 960, 64, 128, 62, 160, 16, "halo", True),  # clamp, past both ends
+    (2, 960, 16, 32, 10, 160, 1, "any", False),  # negative and int32 extremes
+]
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,T,R,G,A,hop,dil,srange,strided", ADAPTIVE_CASES)
+def test_pd_adaptive_block_kernel_matches_plain(cuda, dtype, tol, B, T, R, G,
+                                                A, hop, dil, srange, strided):
+    x, c = (t.to(cuda, dtype) for t in _block_inputs(B, T, R, A, seed=T + R))
+    params = _to(_block_weights("adaptive", R, G, A, dil, strided), cuda,
+                 dtype)
+    r = np.random.default_rng(dil)
+    F = T // hop
+    if srange == "halo":  # every shift at the clamp: all of xP, xF is zero
+        s = np.full((B, F), pd_block_halo(dil, 24000, hop=hop))
+    elif srange == "any":  # shifts the caller's clamp never gives
+        s = r.choice([-2 ** 31, -5000, -30, -1, 0, 7, 2 ** 31 - 1], (B, F))
+    else:
+        s = r.integers(srange[0], srange[1] + 1, (B, F))
+    shifts = torch.from_numpy(s.astype(np.int32)).to(cuda)
+    before = pd_adaptive_block.launches
+    got = pd_adaptive_block(x, c, shifts, params, hop=hop)
+    torch.cuda.synchronize()
+    assert pd_adaptive_block.launches == before + 1
+    _close(got, pd_adaptive_block_plain(x, c, shifts, params, hop=hop), tol)
+
+
+# B, T, R, G, A, dilation, strided weights
+FIXED_CASES = [
+    (2, 3200, 64, 128, 62, 1, True),     # vocoder widths
+    (2, 1007, 16, 32, 10, 8, False),     # T not a multiple of 32
+    (1, 333, 64, 128, 62, 300, True),    # reflection reaches deep
+    (2, 24000, 64, 128, 62, 512, True),  # the filter net's largest dilation
+]
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,T,R,G,A,dil,strided", FIXED_CASES)
+def test_pd_fixed_block_kernel_matches_plain(cuda, dtype, tol, B, T, R, G, A,
+                                             dil, strided):
+    x, c = (t.to(cuda, dtype) for t in _block_inputs(B, T, R, A, seed=T + R))
+    params = _to(_block_weights("fixed", R, G, A, dil, strided), cuda, dtype)
+    before = pd_fixed_block.launches
+    got = pd_fixed_block(x, c, params, dilation=dil)
+    torch.cuda.synchronize()
+    assert pd_fixed_block.launches == before + 1
+    _close(got, pd_fixed_block_plain(x, c, params, dilation=dil), tol)
+
+
+def test_pd_block_kernels_reject_a_gate_too_wide(cuda):
+    x, c = (t.to(cuda) for t in _block_inputs(1, 320, 64, 10, seed=0))
+    params = _to(_block_weights("fixed", 64, 256, 10, 0, False), cuda,
+                 torch.float32)
+    with pytest.raises(ValueError):
+        pd_fixed_block(x, c, params, dilation=1)
+
+
+@pytest.mark.parametrize("folded", [True, False])
+def test_vocoder_on_the_card_matches_the_cpu(cuda, folded):
+    """Folded or with weight norm live, every block launches its kernel."""
+    g = torch.Generator().manual_seed(0)
+    hop = 40
+    model = HNUSFGANGenerator(
+        harmonic_params=dict(blockA=4, cycleA=2, blockF=0, cycleF=0),
+        noise_params=dict(blockA=0, cycleA=0, blockF=2, cycleF=2),
+        filter_params=dict(blockA=0, cycleA=0, blockF=3, cycleF=1),
+        residual_channels=16, gate_channels=32, skip_channels=16,
+        aux_channels=10, upsample_scales=(5, 4, 2), pd_frame_hop=hop,
+        generator=g).eval()
+    if folded:
+        model.fold_weight_norm_()
+    r = np.random.default_rng(2)
+    B, Tf = 2, 30
+    f0 = r.uniform(80, 400, (B, Tf))
+    d = np.repeat(8000 / (f0 * 4), hop, axis=1).astype(np.float32)
+    ins = [torch.from_numpy(a) for a in (
+        (0.1 * r.standard_normal((B, Tf * hop, 2))).astype(np.float32),
+        r.standard_normal((B, Tf + 4, 10)).astype(np.float32), d)]
+    with torch.no_grad():
+        want = model(*ins)
+        before = (pd_adaptive_block.launches, pd_fixed_block.launches)
+        got = model.to(cuda)(*(t.to(cuda) for t in ins))
+        torch.cuda.synchronize()
+    assert (pd_adaptive_block.launches - before[0],
+            pd_fixed_block.launches - before[1]) == (4, 5)
+    for a, b in zip(got, want):
+        assert (a.cpu() - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+
+
+def test_train_step_is_bit_stable_on_the_card(cuda):
+    """Two gan_steps from one state give equal gradients under cuDNN's
+    deterministic algorithms, which the training CLI sets."""
+    from svcc23_fastsvc_tpu_torch.bin.common import deterministic_cudnn
+    from svcc23_fastsvc_tpu_torch.config import build_train_task
+
+    cfg = {"sampling_rate": 4000, "hop_size": 20,
+           "generator_params": dict(in_channels=8, mid_channels=[16, 8],
+                                    upsampling_scales=[4, 5],
+                                    spk_emb_size=12, use_spk_emb=True),
+           "discriminator_params": {"scales": 2, "channels": 4,
+                                    "max_downsample_channels": 32,
+                                    "downsample_scales": [4, 4]},
+           "stft_loss_params": {"fft_sizes": [64, 128], "hop_sizes": [16, 32],
+                                "win_lengths": [64, 128]}}
+    r = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(v.astype(np.float32)).to(cuda) for k, v in {
+        "ppg": r.standard_normal((4, 40, 8)),
+        "f0": r.uniform(80, 300, (4, 40, 1)),
+        "lft": r.standard_normal((4, 800, 1)),
+        "spk_emb": r.standard_normal((4, 12)),
+        "audio": 0.3 * r.standard_normal((4, 800, 1))}.items()}
+    runs = []
+    saved = torch.backends.cudnn.deterministic
+    deterministic_cudnn()
+    try:
+        for _ in range(2):
+            task = build_train_task(cfg, device=cuda, seed=1)
+            log = []
+            for opt in (task.g_opt, task.d_opt):
+                def rec(grads, step=opt.step):
+                    log.append([g.detach().clone() for g in grads])
+                    return step(grads)
+                opt.step = rec
+            task.gan_step(batch)
+            runs.append(log)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    for ga, gb in zip(*runs):
+        assert all(torch.equal(a, b) for a, b in zip(ga, gb))

@@ -72,8 +72,12 @@ def test_signal_generator_matches_jax_without_noise(sine_f0_type):
 
 
 def test_signal_generator_takes_only_the_sine_type():
+    # "noise" and "uv" are ported too (the B02 vocoder's excitation); a type
+    # the JAX package lacks is refused
     with pytest.raises(ValueError):
-        SignalGenerator(signal_types=("sine", "uv"))
+        SignalGenerator(signal_types=("sine", "pulse"))
+    assert SignalGenerator(signal_types=("sine", "uv")).signal_types == (
+        "sine", "uv")
 
 
 def test_signal_generator_noise_follows_the_torch_generator():
