@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FastSVC decode and training paths and the B02
-vocoder's synthesis on one H100.
+vocoder's synthesis on one H100, each fused-chain mode too.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
@@ -57,6 +57,26 @@ Phases, each printed on one line with its elapsed seconds:
    forward, finite output, utterances 0 and 7 held against the same module
    on the CPU (plain versions; bf16 within twice the CPU's own bf16-vs-f32
    distance), audio-s/s by CUDA events and the busy share.
+13. vocoder chain kernel: `pd_fixed_chain` against its plain version on the
+   vocoder's own weights at 8 x 24000 samples, f32 and bf16, for the noise
+   net's (1, 1, 1, 1, 1) and a filter cycle's (1, 2, 4, 8, 16): its error,
+   whether it equals the block kernels bit for bit, its time, its plain
+   version's, and the time of the five `pd_fixed_block` launches it
+   replaces.
+14. vocoder with FASTSVC_PD_CHAIN=5: the same batches through `vocode`,
+   exactly 20 adaptive, 4 chain and 15 fixed launches per forward, the
+   output against phase 12's (f32 within 1e-5 of max |y|; bit identity
+   reported) and against the CPU as in phase 12, rates and busy share
+   beside phase 12's.
+15. down chain: `down_chain_fwd` against its plain version on the
+   generator's DownsampleBlocks at the four decode shapes (8 x 4 s) and
+   the JAX A/B tool's two (batch 32), f32 and bf16, with its time, its
+   plain version's, and the time of the three window convs and the
+   residual it replaces.
+16. decode with the down-chain mode on: the batches of phase 4 through
+   `synthesize`, exactly 36 window-conv, 8 down-chain and 1 sine launches
+   per forward, all 8 utterances against the CPU as in phase 4, the
+   difference from phase 4's output, and batch times beside phase 5's.
 
 The line before the last is the kernels' JSON; the last line is
 `{"ok": true, "device": {...}}`, printed only when every phase passed. A
@@ -273,9 +293,38 @@ def recording(opt_step, log):
     return run
 
 
+def decode_vs_cpu(dev, gens, sg, inputs, rng_states, ys):
+    """Each dtype's batch `ys[dtype]` against the same module on the CPU
+    (plain versions), all 8 utterances; the CPU excitation is the plain sine
+    plus the noise term the card drew in that batch (the noise is
+    torch.randn, not ported code, and a CPU generator cannot draw the
+    card's stream)."""
+    from svcc23_fastsvc_tpu_torch.bin.decode_fastsvc import synthesize
+
+    f0_in = inputs[1]
+    sg0 = dataclasses.replace(sg, noise_amp=0.0)
+    clean = sg0(f0_in)
+    cpu_in = [v.cpu() for v in inputs]
+    out = {}
+    for dtype, g in gens.items():
+        replay = torch.Generator(device=dev)
+        replay.set_state(rng_states[dtype])
+        noise = (sg(f0_in, replay) - clean).cpu()
+        y_ref = synthesize(copy.deepcopy(g).cpu(),
+                           lambda f, _rng, noise=noise: sg0(f) + noise,
+                           *cpu_in, generator_rng=None)
+        err = (ys[dtype].cpu() - y_ref).abs().max().item()
+        scale = y_ref.abs().max().item()
+        out[str(dtype)[6:]] = {"max_abs_err": err, "max_abs_y": scale}
+        require(err <= TOL_DECODE[dtype] * scale,
+                f"decode {dtype} vs CPU plain: max err {err} > "
+                f"{TOL_DECODE[dtype]} x {scale}")
+    return out
+
+
 def vocoder_phases(dev, phases):
-    """Phases 11 and 12: the vocoder kernels' rows, and the launches of
-    every kernel in the vocoder's main path."""
+    """Phases 11-14: the vocoder kernels' rows, and the launches of every
+    kernel in the vocoder's main path, with chaining off and on."""
     from svcc23_fastsvc_tpu_torch.bin.synthesize_b02 import (
         signal_generator,
         vocode,
@@ -290,6 +339,8 @@ def vocoder_phases(dev, phases):
         pd_block_halo,
         pd_fixed_block,
         pd_fixed_block_plain,
+        pd_fixed_chain,
+        pd_fixed_chain_plain,
     )
     from svcc23_fastsvc_tpu_torch.ops.sine import sine_excitation
 
@@ -371,85 +422,339 @@ def vocoder_phases(dev, phases):
 
     # 12. the vocoder's main path: 8 x 1 s, f32 then bf16
     t = time.perf_counter()
-    counters = (pd_adaptive_block, pd_fixed_block, sine_excitation)
-    for k in counters:
-        k.launches = 0
-    rng = torch.Generator(device=dev).manual_seed(14)
-    ys, states = {}, {}
-    for dtype, voc in ((torch.float32, v32), (torch.bfloat16, v16)):
-        states[dtype] = rng.get_state()
-        before = [k.launches for k in counters]
-        ys[dtype] = vocode(voc, sg, f0_d, aux_d, df_d, generator_rng=rng)
-        torch.cuda.synchronize()
-        rose = [k.launches - b for k, b in zip(counters, before)]
-        require(rose == [20, 35, 1], f"vocoder {dtype} launched {rose} "
-                                     "(adaptive, fixed, sine); want "
-                                     "[20, 35, 1]")
-    launches = {"pd_adaptive_block": pd_adaptive_block.launches,
-                "pd_fixed_block": pd_fixed_block.launches,
-                "sine_excitation": sine_excitation.launches}
-    say(f"vocoder main path: launches {launches}")
-    for dtype, y in ys.items():
-        require(tuple(y.shape) == (VB, T, 1), f"vocoder output {y.shape}")
-        require(torch.isfinite(y).all().item(), f"vocoder {dtype}: not finite")
+    rng = torch.Generator(device=dev)
+    vocoders = ((torch.float32, v32), (torch.bfloat16, v16))
 
-    # the same module on the CPU (plain versions) on utterances 0 and 7, fed
-    # the excitation the card drew (noise from the card's generator)
-    sel = list(VOC_UTTS)
-    cpu_y, voc_err = {}, {}
-    for dtype, voc in ((torch.float32, v32), (torch.bfloat16, v16)):
-        replay = torch.Generator(device=dev)
-        replay.set_state(states[dtype])
-        x = sg(f0_d.float(), replay)[sel].to(dtype).cpu()
-        with torch.inference_mode():
-            y_cpu, _ = copy.deepcopy(voc).cpu()(x, aux_d[sel].to(dtype).cpu(),
-                                                df_d[sel].cpu())
-        cpu_y[dtype] = y_cpu.float()
-    own = ((cpu_y[torch.bfloat16] - cpu_y[torch.float32]).abs().max().item()
-           / cpu_y[torch.float32].abs().max().item())
-    for dtype in ys:
-        ref = cpu_y[dtype]
-        err = (ys[dtype][sel].cpu() - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        limit = (TOL_DECODE[torch.float32] if dtype == torch.float32
-                 else BF16_FACTOR * own)
-        voc_err[str(dtype)[6:]] = {"max_abs_err": err, "max_abs_y": scale,
+    def drive(counters, want, what):
+        """One batch per dtype through `vocode`, the generator at 14 for
+        each (so chain on and off draw the same excitation); each kernel's
+        launches per forward must be `want`."""
+        for k in counters:
+            k.launches = 0
+        ys, states = {}, {}
+        for dtype, voc in vocoders:
+            rng.manual_seed(14)
+            states[dtype] = rng.get_state()
+            before = [k.launches for k in counters]
+            ys[dtype] = vocode(voc, sg, f0_d, aux_d, df_d, generator_rng=rng)
+            torch.cuda.synchronize()
+            rose = [k.launches - b for k, b in zip(counters, before)]
+            require(rose == want, f"{what} {dtype} launched {rose}; want "
+                                  f"{want}")
+            require(tuple(ys[dtype].shape) == (VB, T, 1),
+                    f"{what} output {ys[dtype].shape}")
+            require(torch.isfinite(ys[dtype]).all().item(),
+                    f"{what} {dtype}: not finite")
+        return ys, states, {k.__name__: k.launches for k in counters}
+
+    def vs_cpu(ys, states, what):
+        """The same module on the CPU (plain versions) on utterances 0 and
+        7, fed the excitation the card drew (noise from the card's
+        generator)."""
+        sel = list(VOC_UTTS)
+        cpu_y, out = {}, {}
+        for dtype, voc in vocoders:
+            replay = torch.Generator(device=dev)
+            replay.set_state(states[dtype])
+            x = sg(f0_d.float(), replay)[sel].to(dtype).cpu()
+            with torch.inference_mode():
+                y_cpu, _ = copy.deepcopy(voc).cpu()(
+                    x, aux_d[sel].to(dtype).cpu(), df_d[sel].cpu())
+            cpu_y[dtype] = y_cpu.float()
+        own = ((cpu_y[torch.bfloat16] - cpu_y[torch.float32]).abs().max()
+               .item() / cpu_y[torch.float32].abs().max().item())
+        for dtype in ys:
+            ref = cpu_y[dtype]
+            err = (ys[dtype][sel].cpu() - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            limit = (TOL_DECODE[torch.float32] if dtype == torch.float32
+                     else BF16_FACTOR * own)
+            out[str(dtype)[6:]] = {"max_abs_err": err, "max_abs_y": scale,
                                    "err / max |y|": err / scale,
                                    "limit": limit}
-        require(err <= limit * scale, f"vocoder {dtype} vs CPU: max err "
-                                      f"{err} > {limit} x {scale}")
-    say(f"vocoder vs the same module on the CPU (utterances {sel}): "
-        f"{voc_err}; CPU bf16 vs CPU f32: {own:.4e} of max |y|")
-    phases["vocoder_s"] = time.perf_counter() - t
+            require(err <= limit * scale, f"{what} {dtype} vs CPU: max err "
+                                          f"{err} > {limit} x {scale}")
+        say(f"{what} vs the same module on the CPU (utterances {sel}): "
+            f"{out}; CPU bf16 vs CPU f32: {own:.4e} of max |y|")
 
-    # timings: whole batches by CUDA events, then the busy share
+    def rates_of(what):
+        """Whole batches by CUDA events, then the busy share."""
+        out = {}
+        for dtype, voc in vocoders:
+            def batch(voc=voc):
+                vocode(voc, sg, f0_d, aux_d, df_d, generator_rng=rng)
+            ms = cuda_ms(batch, iters=5, warmup=2)
+            t_wall = time.perf_counter()
+            for _ in range(3):
+                batch()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t_wall) * 1e3 / 3
+            per_kernel = device_ms(batch)
+            busy = sum(per_kernel.values())
+            out[str(dtype)[6:]] = {"batch_ms": ms,
+                                   "audio_s_per_s": VB * T / VSR / ms * 1e3,
+                                   "wall_ms": wall_ms, "kernels_ms": busy,
+                                   "busy": busy / wall_ms}
+            say(f"profile {what} {str(dtype)[6:]}: wall {wall_ms:.3f} "
+                f"ms/batch, kernels {busy:.3f} ms, busy {busy / wall_ms:.1%}")
+            for kname, kms in list(per_kernel.items())[:10]:
+                say(f"  {kms:8.4f} ms {kms / busy:6.1%}  {kname[:110]}")
+        say(f"{what} {VB} x {T / VSR:.0f} s: {out}")
+        return out
+
+    ys, states, launches = drive(
+        (pd_adaptive_block, pd_fixed_block, sine_excitation), [20, 35, 1],
+        "vocoder")
+    say(f"vocoder main path: launches {launches}")
+    vs_cpu(ys, states, "vocoder")
+    phases["vocoder_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    rates = {}
-    for dtype, voc in ((torch.float32, v32), (torch.bfloat16, v16)):
-        def batch(voc=voc):
-            vocode(voc, sg, f0_d, aux_d, df_d, generator_rng=rng)
-        ms = cuda_ms(batch, iters=5, warmup=2)
-        t_wall = time.perf_counter()
-        for _ in range(3):
-            batch()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t_wall) * 1e3 / 3
-        per_kernel = device_ms(batch)
-        busy = sum(per_kernel.values())
-        rates[str(dtype)[6:]] = {"batch_ms": ms,
-                                 "audio_s_per_s": VB * T / VSR / ms * 1e3,
-                                 "wall_ms": wall_ms, "kernels_ms": busy,
-                                 "busy": busy / wall_ms}
-        say(f"profile vocoder {str(dtype)[6:]}: wall {wall_ms:.3f} ms/batch, "
-            f"kernels {busy:.3f} ms, busy {busy / wall_ms:.1%}")
-        for kname, kms in list(per_kernel.items())[:10]:
-            say(f"  {kms:8.4f} ms {kms / busy:6.1%}  {kname[:110]}")
-    say(f"vocoder {VB} x {T / VSR:.0f} s: {rates}")
+    rates = rates_of("vocoder")
     phases["vocoder_timings_s"] = time.perf_counter() - t
     for row, (kind, dil, dtype) in zip(rows, cases):
         row["launches"] = launches[f"pd_{kind}_block"]
-        row["launches_by_path"] = {"decode": 0, "train": 0,
-                                   "vocoder": row["launches"]}
+
+    # 13. the chain kernel at the vocoder's shapes, on its own weights: the
+    # noise net's five d=1 blocks and a filter cycle's (1, 2, 4, 8, 16)
+    t = time.perf_counter()
+    chain_cases = []
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((VB, T, 64), generator=gen, device=dev).to(dtype)
+        c = torch.randn((VB, T, 62), generator=gen, device=dev).to(dtype)
+        for net in (v32.noise_network, v32.filter_network):
+            dils = net.dilations[:5]
+            params = [{k: {n: v.to(dtype) for n, v in p.items()}
+                       for k, p in blk.block_params().items()}
+                      for blk in net.conv_dilated[:5]]
+            kw = {"dilations": dils}
+
+            def blocks(x=x, c=c, params=params, dils=dils):
+                for p, d in zip(params, dils):
+                    x = pd_fixed_block(x, c, p, dilation=d)
+                return x
+            y = pd_fixed_chain(x, c, params, **kw)
+            ref = pd_fixed_chain_plain(x, c, params, **kw)
+            same = torch.equal(y, blocks())
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            require(torch.isfinite(y).all().item(),
+                    f"pd_fixed_chain d={dils}: non-finite")
+            require(err <= TOL_CONV[dtype] * scale,
+                    f"pd_fixed_chain d={dils} {dtype}: max err {err} > "
+                    f"{TOL_CONV[dtype]} x {scale}")
+            wbytes = sum(v.numel() for p in params for q in p.values()
+                         for v in q.values()) * x.element_size()
+            nbytes = (x.numel() + c.numel() + y.numel()) * x.element_size() \
+                + wbytes
+            ops = len(dils) * 2 * VB * T * ((3 * 64 + 62) * 128 + 64 * 64)
+            b_ms, b_by = bound(nbytes, ops, dtype)
+            chain_cases.append({
+                "name": f"pd_fixed_chain {str(dtype)[6:]} ({VB},{T},64|62)"
+                        f"->64 d={','.join(map(str, dils))}",
+                "route": "cuda",
+                "source": "svcc23_fastsvc_tpu_torch/csrc/pd_chain.cu",
+                "replaces": "svcc23_fastsvc_tpu/ops/pallas_pd_block.py:473",
+                "max_abs_err": err,
+                "ms": cuda_ms(lambda: pd_fixed_chain(x, c, params, **kw)),
+                "plain_ms": cuda_ms(lambda: pd_fixed_chain_plain(
+                    x, c, params, **kw), iters=3, warmup=1),
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": None,
+                "replaced_ms": cuda_ms(blocks),
+                "equals_the_block_kernels": same,
+            })
+            k = chain_cases[-1]
+            say(f"{k['name']}: max err {err:.3e} (scale {scale:.3e}); "
+                f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, the {len(dils)}"
+                f" block launches it replaces {k['replaced_ms']:.4f}, library "
+                f"none, bound {k['bound_ms']:.4f} by {k['bound_by']}); equal "
+                f"to the block kernels bit for bit: {same}")
+        del x, c
+    phases["chain_kernels_s"] = time.perf_counter() - t
+
+    # 14. the vocoder's main path with FASTSVC_PD_CHAIN=5: the noise net and
+    # each filter cycle's (1, 2, 4, 8, 16) prefix as chains
+    t = time.perf_counter()
+    saved = os.environ.get("FASTSVC_PD_CHAIN")
+    os.environ["FASTSVC_PD_CHAIN"] = "5"
+    try:
+        ys_c, states_c, chain_launches = drive(
+            (pd_adaptive_block, pd_fixed_chain, pd_fixed_block,
+             sine_excitation), [20, 4, 15, 1], "vocoder with chains")
+        say(f"vocoder with chains, main path: launches {chain_launches}")
+        vs_off = {}
+        for dtype, y in ys_c.items():
+            err = (y - ys[dtype]).abs().max().item()
+            scale = ys[dtype].abs().max().item()
+            vs_off[str(dtype)[6:]] = {"max_abs_diff": err,
+                                      "diff / max |y|": err / scale,
+                                      "bit_identical": torch.equal(
+                                          y, ys[dtype])}
+            if dtype == torch.float32:
+                require(err <= 1e-5 * scale, f"vocoder with chains f32 vs "
+                                             f"chains off: {err} > 1e-5 x "
+                                             f"{scale}")
+        say(f"vocoder with chains vs chains off, on the card: {vs_off}")
+        vs_cpu(ys_c, states_c, "vocoder with chains")
+        chain_rates = rates_of("vocoder with chains")
+    finally:
+        if saved is None:
+            del os.environ["FASTSVC_PD_CHAIN"]
+        else:
+            os.environ["FASTSVC_PD_CHAIN"] = saved
+    say("vocoder batch ms, chains off -> on: " + ", ".join(
+        f"{dt} {rates[dt]['batch_ms']:.3f} -> "
+        f"{chain_rates[dt]['batch_ms']:.3f} (device "
+        f"{rates[dt]['kernels_ms']:.3f} -> "
+        f"{chain_rates[dt]['kernels_ms']:.3f})" for dt in rates))
+    phases["vocoder_chain_s"] = time.perf_counter() - t
+    for row in chain_cases:
+        row["launches"] = chain_launches["pd_fixed_chain"]
+    launches = {**launches, "pd_fixed_chain": 0}
+    return rows + chain_cases, {"vocoder": launches,
+                                "vocoder_chain": chain_launches}
+
+
+# (what it is, batch, T after the block's downsample, block index) of the
+# down chain: the decode batch's four blocks (each in the sine and the
+# loudness chain) and the JAX A/B tool's two (tools/down_chain_ab.py)
+DOWN_SHAPES = [
+    ("decode block 0 (1->24)", B, 64000, 0),
+    ("decode block 1 (24->48)", B, 12800, 1),
+    ("decode block 2 (48->96)", B, 3200, 2),
+    ("decode block 3 (96->192)", B, 800, 3),
+    ("tool block 0 (1->24)", 32, 24000, 0),
+    ("tool block 1 (24->48)", 32, 12000, 1),
+]
+
+
+def down_chain_phases(dev, phases, gens, sg, inputs, rng_states, ys_off,
+                      rate_off):
+    """Phases 15 and 16: the down-chain kernel against its plain version and
+    against the launches it replaces, then decode with the down-chain mode
+    on (its launches, all 8 utterances against the CPU, batch times beside
+    phase 5's)."""
+    from svcc23_fastsvc_tpu_torch.bin.decode_fastsvc import synthesize
+    from svcc23_fastsvc_tpu_torch.ops.down_chain import (
+        down_chain_fwd,
+        down_chain_fwd_plain,
+        set_down_chain_mode,
+    )
+    from svcc23_fastsvc_tpu_torch.ops.sine import sine_excitation
+    from svcc23_fastsvc_tpu_torch.ops.window_conv import window_conv
+
+    # 15. the kernel at the decode and tool shapes, on the generator's
+    # weights (its sine chain)
+    t = time.perf_counter()
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for dtype, g in gens.items():
+        for what, nb, T, i in DOWN_SHAPES:
+            blk = g.downsampling_sine[i]
+            params = blk.block_params()
+            cin, cout = blk.in_channels, blk.mid_channels
+            x = torch.randn((nb, T, cin), generator=gen, device=dev).to(dtype)
+            with torch.inference_mode():
+                y = down_chain_fwd(x, params)
+                ref = down_chain_fwd_plain(x, params)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            require(torch.isfinite(y).all().item(),
+                    f"down_chain_fwd {what}: non-finite")
+            require(err <= TOL_CONV[dtype] * scale,
+                    f"down_chain_fwd {what} {dtype}: max err {err} > "
+                    f"{TOL_CONV[dtype]} x {scale}")
+            wbytes = sum(p[k].numel() for p in params.values()
+                         for k in ("w", "b")) * x.element_size()
+            nbytes = (x.numel() + y.numel()) * x.element_size() + wbytes
+            ops = 2 * nb * T * (3 * cin * cout + 6 * cout * cout + cin * cout)
+            b_ms, b_by = bound(nbytes, ops, dtype)
+
+            def timed(fn, **kw):
+                with torch.inference_mode():
+                    return cuda_ms(fn, **kw)
+            rows.append({
+                "name": f"down_chain_fwd {str(dtype)[6:]} {what} "
+                        f"({nb},{T},{cin})->{cout} d=1,2,4",
+                "route": "cuda",
+                "source": "svcc23_fastsvc_tpu_torch/csrc/down_chain.cu",
+                "replaces": "svcc23_fastsvc_tpu/ops/pallas_down_chain.py:158",
+                "max_abs_err": err,
+                "ms": timed(lambda: down_chain_fwd(x, params)),
+                "plain_ms": timed(lambda: down_chain_fwd_plain(x, params),
+                                  iters=5, warmup=1),
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": None,
+                "replaced_ms": timed(lambda: blk.unfused(x)),
+            })
+            k = rows[-1]
+            say(f"{k['name']}: max err {err:.3e} (scale {scale:.3e}); "
+                f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, the 3 window "
+                f"convs + residual it replaces {k['replaced_ms']:.4f}, "
+                f"library none, bound {k['bound_ms']:.4f} by {k['bound_by']})")
+            del x, y, ref
+    phases["down_chain_kernels_s"] = time.perf_counter() - t
+
+    # 16. decode with the down-chain mode on, f32 then bf16
+    t = time.perf_counter()
+    ppg, f0_in, lft, emb = inputs
+    rng = torch.Generator(device=dev)
+    counters = (window_conv, down_chain_fwd, sine_excitation)
+    for k in counters:
+        k.launches = 0
+    set_down_chain_mode("1")
+    try:
+        ys = {}
+        for dtype, g in gens.items():
+            rng.set_state(rng_states[dtype])
+            before = [k.launches for k in counters]
+            ys[dtype] = synthesize(g, sg, ppg, f0_in, lft, emb,
+                                   generator_rng=rng)
+            torch.cuda.synchronize()
+            rose = [k.launches - b for k, b in zip(counters, before)]
+            require(rose == [36, 8, 1],
+                    f"decode with the down chain {dtype} launched {rose} "
+                    "(window_conv, down_chain_fwd, sine); want [36, 8, 1]")
+            require(tuple(ys[dtype].shape) == tuple(ys_off[dtype].shape)
+                    and torch.isfinite(ys[dtype]).all().item(),
+                    f"decode with the down chain {dtype}: output")
+        launches = {k.__name__: k.launches for k in counters}
+        say(f"decode with the down chain, main path: launches {launches}")
+        vs_off = {}
+        for dtype, y in ys.items():
+            err = (y - ys_off[dtype]).abs().max().item()
+            vs_off[str(dtype)[6:]] = {
+                "max_abs_diff": err,
+                "diff / max |y|": err / ys_off[dtype].abs().max().item(),
+                "bit_identical": torch.equal(y, ys_off[dtype])}
+        say(f"decode with the down chain vs without, on the card: {vs_off}")
+        err = decode_vs_cpu(dev, gens, sg, inputs, rng_states, ys)
+        say(f"decode with the down chain vs the same module on the CPU: "
+            f"{err}")
+        audio_s = B * TF * HOP / SR
+        rate = {}
+        for dtype, g in gens.items():
+            def batch(g=g):
+                synthesize(g, sg, ppg, f0_in, lft, emb, generator_rng=rng)
+            ms = cuda_ms(batch, iters=5, warmup=2)
+            per_kernel = device_ms(batch)
+            rate[str(dtype)[6:]] = {"batch_ms": ms,
+                                    "audio_s_per_s": audio_s / ms * 1e3,
+                                    "kernels_ms": sum(per_kernel.values())}
+            for kname, kms in list(per_kernel.items())[:8]:
+                say(f"  {kms:8.4f} ms  {kname[:110]}")
+    finally:
+        set_down_chain_mode("0")
+    say(f"decode {B} x {TF * HOP / SR:.0f} s with the down chain: {rate}; "
+        f"without (phase 5): {rate_off}")
+    phases["decode_chain_s"] = time.perf_counter() - t
+    for row in rows:
+        row["launches"] = launches["down_chain_fwd"]
     return rows, launches
 
 
@@ -602,27 +907,8 @@ def main():
         require(tuple(y.shape) == (B, TF * HOP, 1), f"output shape {y.shape}")
         require(torch.isfinite(y).all().item(), f"{dtype} output not finite")
 
-    # the same module on the CPU (plain versions), on all 8 utterances of
-    # each batch above; the CPU excitation is the plain sine plus the noise
-    # term the card drew in that batch (the noise is torch.randn, not ported
-    # code, and a CPU generator cannot draw the card's stream)
-    sg0 = dataclasses.replace(sg, noise_amp=0.0)
-    clean = sg0(f0_in)
-    cpu_in = [v.cpu() for v in (ppg, f0_in, lft, emb)]
-    decode_err = {}
-    for dtype, g in ((torch.float32, g32), (torch.bfloat16, g16)):
-        replay = torch.Generator(device=dev)
-        replay.set_state(rng_states[dtype])
-        noise = (sg(f0_in, replay) - clean).cpu()
-        y_ref = synthesize(copy.deepcopy(g).cpu(),
-                           lambda f, _rng, noise=noise: sg0(f) + noise,
-                           *cpu_in, generator_rng=None)
-        err = (ys[dtype].cpu() - y_ref).abs().max().item()
-        scale = y_ref.abs().max().item()
-        decode_err[str(dtype)[6:]] = {"max_abs_err": err, "max_abs_y": scale}
-        require(err <= TOL_DECODE[dtype] * scale,
-                f"decode {dtype} vs CPU plain: max err {err} > "
-                f"{TOL_DECODE[dtype]} x {scale}")
+    decode_err = decode_vs_cpu(dev, {torch.float32: g32, torch.bfloat16: g16},
+                               sg, (ppg, f0_in, lft, emb), rng_states, ys)
     say(f"decode vs the same module on the CPU: {decode_err}")
     phases["decode_s"] = time.perf_counter() - t
 
@@ -939,10 +1225,6 @@ def main():
     # at its defaults (its deterministic wgrad is far slower at Cin = 1)
     torch.backends.cudnn.deterministic = False
     t = time.perf_counter()
-    for row in kernels:
-        row["launches_by_path"] = {
-            "decode": row["launches"],
-            "train": train_launches[row["name"].split(" ")[0]]}
     tgrad = torch.nn.grad
     for dtype, what, T, cin, cout, dil, slope, x, g, w, errs in grad_cases:
         esize = x.element_size()
@@ -980,8 +1262,6 @@ def main():
                 "replaces": f"svcc23_fastsvc_tpu/ops/pallas_window_conv.py:"
                             f"{line}",
                 "launches": train_launches[kernel],
-                "launches_by_path": {"decode": 0,
-                                     "train": train_launches[kernel]},
                 "max_abs_err": err,
                 "ms": cuda_ms(fn),
                 "plain_ms": cuda_ms(plain),
@@ -995,12 +1275,20 @@ def main():
                 f"by {k['bound_by']})")
     phases["grad_timings_s"] = time.perf_counter() - t
 
-    # 11-12. the B02 vocoder, with cuDNN at its defaults as in synthesize_b02
+    # 11-14. the B02 vocoder, with cuDNN at its defaults as in synthesize_b02
     voc_rows, voc_launches = vocoder_phases(dev, phases)
-    for row in kernels:
-        row["launches_by_path"]["vocoder"] = voc_launches.get(
-            row["name"].split(" ")[0], 0)
     kernels += voc_rows
+
+    # 15-16. the down chain, and decode with it
+    down_rows, down_launches = down_chain_phases(
+        dev, phases, {torch.float32: g32, torch.bfloat16: g16}, sg,
+        (ppg, f0_in, lft, emb), rng_states, ys, decode_rate)
+    kernels += down_rows
+    paths = {"decode": launches, "train": train_launches, **voc_launches,
+             "decode_chain": down_launches}
+    for row in kernels:
+        name = row["name"].split(" ")[0]
+        row["launches_by_path"] = {p: n.get(name, 0) for p, n in paths.items()}
     phases["total_s"] = time.perf_counter() - _T0
     say(f"phases: {phases}")
 

@@ -3,12 +3,14 @@
 `generator_state_dict_from_jax`, `melgan_msd_state_dict_from_jax` and
 `hnusfgan_state_dict_from_jax` are the inverses of the JAX package's
 `compat/torch_weights.py::convert_fastsvc_generator`, `convert_melgan_msd`
-and `convert_hnusfgan`: each takes a JAX param pytree as numpy arrays,
-either in weight-norm form ({"v", "g", "b"} leaves, WIO v) or folded
-({"w", "b"}), and returns a state dict with the reference torch keys that
-`models.fastsvc.FastSVCGenerator`, `MelGANMultiScaleDiscriminator` or
-`models.hnusfgan.HNUSFGANGenerator` loads (built with `use_weight_norm`
-matching the form). No JAX import: the arrays only need `numpy.asarray`.
+and `convert_hnusfgan`; `downsample_block_state_dict_from_jax` carries one
+of the generator's DownsampleBlocks. Each takes a JAX param pytree as
+numpy arrays, either in weight-norm form ({"v", "g", "b"} leaves, WIO v) or
+folded ({"w", "b"}), and returns a state dict with the reference torch keys
+that `models.fastsvc.FastSVCGenerator`, `DownsampleBlock`,
+`MelGANMultiScaleDiscriminator` or `models.hnusfgan.HNUSFGANGenerator`
+loads (built with `use_weight_norm` matching the form). No JAX import:
+the arrays only need `numpy.asarray`.
 """
 
 from __future__ import annotations
@@ -49,16 +51,24 @@ def generator_state_dict_from_jax(params) -> dict:
             sd[f"{pre}.emb_projector.bias"] = _t(ep["b"])
     for name in ("lft", "sine"):
         for i, blk in enumerate(params[f"down_{name}"]):
-            pre = f"downsampling_{name}.{i}"
-            _conv(sd, f"{pre}.residual_block.0", blk["res_conv"])
-            _conv(sd, f"{pre}.downsample_block.2", blk["conv1"])
-            _conv(sd, f"{pre}.downsample_block.4", blk["conv2"])
-            _conv(sd, f"{pre}.downsample_block.6", blk["conv3"])
+            sd.update(downsample_block_state_dict_from_jax(
+                blk, prefix=f"downsampling_{name}.{i}."))
         for i, blk in enumerate(params[f"film_{name}"]):
             pre = f"film_{name}.{i}"
             for key in ("conv", "conv_scale", "conv_shift"):
                 _conv(sd, f"{pre}.{key}", blk[key])
     _conv(sd, "conv_last", params["conv_last"])
+    return sd
+
+
+def downsample_block_state_dict_from_jax(params, prefix: str = "") -> dict:
+    """JAX DownsampleBlock params -> the port's `DownsampleBlock`
+    `state_dict` (keys under `prefix`)."""
+    sd = {}
+    _conv(sd, f"{prefix}residual_block.0", params["res_conv"])
+    _conv(sd, f"{prefix}downsample_block.2", params["conv1"])
+    _conv(sd, f"{prefix}downsample_block.4", params["conv2"])
+    _conv(sd, f"{prefix}downsample_block.6", params["conv3"])
     return sd
 
 

@@ -14,7 +14,10 @@ directly.
 
 Like the JAX model, the downsampling chains run once per forward and keep
 every tap, and `_film_pair` fuses the sine and loudness FiLM output convs
-into one (K, 2C, 2C) conv for inference. Training runs the unfused forward
+into one (K, 2C, 2C) conv for inference. With the down-chain mode on
+(`ops.down_chain.set_down_chain_mode("1")`, default "0") and grad off, each
+DownsampleBlock runs as one `down_chain_fwd` kernel in place of its three
+window convs and residual matmul. Training runs the unfused forward
 with weight norm live: `Conv1d.wio()` builds the effective weight from
 `weight_g`/`weight_v` inside the graph, so their gradients come back in the
 parameters' own (O, I, K) layout.
@@ -38,6 +41,7 @@ from ..ops.conv import (
     linear,
     reflect_pad1d,
 )
+from ..ops.down_chain import down_chain_fwd, down_chain_mode, down_chain_takes
 from ..ops.resample import nearest_downsample, nearest_upsample
 
 
@@ -191,6 +195,7 @@ class DownsampleBlock(nn.Module):
         kw = dict(weight_norm=use_weight_norm, device=device,
                   generator=generator)
         self.scale = scale
+        self.in_channels, self.mid_channels = in_channels, C
         self.residual_block = nn.ModuleList([Conv1d(in_channels, C, 1, **kw)])
         self.downsample_block = _placeholders(7, {
             2: Conv1d(in_channels, C, 3, **kw),
@@ -198,10 +203,28 @@ class DownsampleBlock(nn.Module):
             6: Conv1d(C, C, 3, **kw),
         })
 
+    def block_params(self):
+        """The JAX layout {"conv1", "conv2", "conv3", "res_conv"}, each
+        {"w": WIO view, "b"}, on the effective weights (folded or live)."""
+        convs = {"conv1": self.downsample_block[2],
+                 "conv2": self.downsample_block[4],
+                 "conv3": self.downsample_block[6],
+                 "res_conv": self.residual_block[0]}
+        return {k: {"w": m.wio(), "b": m.bias} for k, m in convs.items()}
+
     def forward(self, x):
         # the 1x1 residual conv commutes with the nearest downsample, so both
         # paths share one downsampled input (JAX model, same numerics)
         xd = nearest_downsample(x, self.scale)
+        if (down_chain_mode() == "1" and not torch.is_grad_enabled()
+                and down_chain_takes(self.in_channels, self.mid_channels)):
+            # the fused forward (ops/down_chain.py); it takes no strided view
+            return down_chain_fwd(xd.contiguous(), self.block_params())
+        return self.unfused(xd)
+
+    def unfused(self, xd):
+        """The block on its downsampled input as three window convs and the
+        residual matmul (what `down_chain_fwd` replaces)."""
         r = self.residual_block[0](xd)
         h = self.downsample_block[2](xd, dilation=1, input_leaky=0.2)
         h = self.downsample_block[4](h, dilation=2, input_leaky=0.2)

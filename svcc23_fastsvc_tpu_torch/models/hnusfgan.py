@@ -13,13 +13,16 @@ and `upsample_net.upsample.up_layers.{2k+1}` (Conv2d (1, 1, 1, 2s+1)),
 `periodicity_estimator.layers.{2k}` and `conv_last.{1,3}`; placeholders
 keep each conv at its reference index.
 
-`ResidualBlocks` dispatches as the JAX package does, without its switches,
-with weight norm folded or live (the blocks take the effective weights):
-an adaptive block runs `ops.pd_block.pd_adaptive_block` when the dilation
-factors are frame-constant (`pd_frame_hop` > 0, T % hop == 0), and every
-(K=3) fixed block runs `pd_fixed_block`; each launches its CUDA kernel on
-a CUDA tensor and takes its plain version on a CPU one. With per-sample
-dilation factors an adaptive block gathers per sample (`pd_indexing`) and
+`ResidualBlocks` dispatches as the JAX package does, without its kernel
+switches, with weight norm folded or live (the blocks take the effective
+weights): an adaptive block runs `ops.pd_block.pd_adaptive_block` when the
+dilation factors are frame-constant (`pd_frame_hop` > 0, T % hop == 0), and
+every (K=3) fixed block runs `pd_fixed_block`, or, where chaining is on
+(`FASTSVC_PD_CHAIN` >= 2, see `chain_max`), a run of them runs as one
+`pd_fixed_chain`, grouped by the JAX package's rule; each launches its CUDA
+kernel on a CUDA tensor and takes its plain version on a CPU one. With
+per-sample dilation factors an adaptive block gathers per sample
+(`pd_indexing`) and
 runs the same block math as the plain version (`ops.pd_block.
 adaptive_block_gathered`). The reference's skip convs are dead computation
 there and here: they keep their parameters and are never applied.
@@ -27,6 +30,7 @@ there and here: they keep their parameters and are never applied.
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
@@ -35,11 +39,13 @@ from torch import nn
 from ..ops.conv import conv_weight, edge_pad1d
 from ..ops.pd_block import (
     adaptive_block_gathered,
+    fixed_chain_offsets,
     frame_shifts,
     masked_gather,
     pd_adaptive_block,
     pd_block_halo,
     pd_fixed_block,
+    pd_fixed_chain,
     shift_gather,
 )
 from ..ops.resample import nearest_upsample
@@ -48,6 +54,29 @@ from .fastsvc import Conv1d, _placeholders
 # the adaptive kernels' shift clamp, as the JAX package sizes it (for f0 >=
 # 37.5 Hz nothing is clamped, at 16 or 24 kHz)
 PD_HALO_FS = 24000
+
+
+def chain_max() -> int:
+    """The longest run of fixed blocks that runs as one `pd_fixed_chain`:
+    FASTSVC_PD_CHAIN, read as the JAX package's `_chain_max` reads it
+    (default "0"; below 2, or not an integer, turns chaining off). The JAX
+    package also asks its pd-kernel mode and a TPU self-check; the port's
+    blocks always run its kernels, so the variable alone decides."""
+    try:
+        n = int(os.environ.get("FASTSVC_PD_CHAIN", "0"))
+    except ValueError:
+        return 1
+    return n if n >= 2 else 1
+
+
+def chain_halo_max() -> int:
+    """The halo budget of a chain, in the JAX kernel's 32-aligned rows:
+    FASTSVC_PD_CHAIN_HALO, default 160 (the (1, 2, 4, 8, 16) filter-cycle
+    prefix, or five d=1 noise blocks), as the JAX `_chain_halo_max`."""
+    try:
+        return int(os.environ.get("FASTSVC_PD_CHAIN_HALO", "160"))
+    except ValueError:
+        return 160
 
 
 def pd_indexing(x, d, dilation: int):
@@ -157,6 +186,42 @@ class ResidualBlocks(nn.Module):
         self.conv_dilated = nn.ModuleList(b for _, b in blocks)
         self.pd_frame_hop = pd_frame_hop
 
+    def plan(self, T: int):
+        """The order of launches for a stream of T samples, as JAX
+        `ResidualBlocks.apply` groups it: ("chain", [i, ..]) for a run of
+        fixed blocks that starts at dilation 1 and grows while the next
+        block is fixed, up to `chain_max()` blocks and while the run's
+        32-aligned halo (`fixed_chain_offsets`) stays within
+        `chain_halo_max()` and T >= 2 halo, kept when it holds 2 or more;
+        ("fixed", i) and ("adaptive", i) for the rest. Runs need T % 32 ==
+        0, as in the JAX package, so both chain the same runs."""
+        n_max = chain_max() if T % 32 == 0 else 1
+        halo_max = chain_halo_max()
+        fixed = [isinstance(b, FixedBlock) for b in self.conv_dilated]
+        steps, i = [], 0
+        while i < len(fixed):
+            if not fixed[i]:
+                steps.append(("adaptive", i))
+                i += 1
+                continue
+            run = []
+            if n_max >= 2 and self.dilations[i] == 1:
+                j = i
+                while j < len(fixed) and fixed[j] and len(run) < n_max:
+                    halo = fixed_chain_offsets(
+                        [self.dilations[k] for k in run + [j]])[-1]
+                    if halo > halo_max or T < 2 * halo:
+                        break
+                    run.append(j)
+                    j += 1
+            if len(run) >= 2:
+                steps.append(("chain", run))
+                i = run[-1] + 1
+            else:
+                steps.append(("fixed", i))
+                i += 1
+        return steps
+
     def forward(self, x, c, d):
         """x (B, T, R), c (B, T, aux), d (B, T) f32 dilation factors."""
         hop = self.pd_frame_hop
@@ -165,8 +230,14 @@ class ResidualBlocks(nn.Module):
         # channels-first conv output can leave the mixed source transposed)
         x, c = x.contiguous(), c.contiguous()
         shifts = {}  # by dilation, for the adaptive kernel
-        for dil, blk in zip(self.dilations, self.conv_dilated):
-            if isinstance(blk, FixedBlock):
+        for kind, i in self.plan(x.shape[1]):
+            if kind == "chain":
+                x = pd_fixed_chain(
+                    x, c, [self.conv_dilated[k].block_params() for k in i],
+                    dilations=[self.dilations[k] for k in i])
+                continue
+            dil, blk = self.dilations[i], self.conv_dilated[i]
+            if kind == "fixed":
                 x = blk(x, c)
             elif framewise:
                 if dil not in shifts:

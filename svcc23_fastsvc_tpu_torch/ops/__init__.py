@@ -1,7 +1,8 @@
 """Ops: primitives, resampling, excitation, STFT.
 
-The CUDA kernels' wrappers live in `ops.window_conv` (forward, dx, wgrad)
-and `ops.sine`.
+The CUDA kernels' wrappers live in `ops.window_conv` (forward, dx, wgrad),
+`ops.sine`, `ops.pd_block` (the vocoder's gated blocks and their chain)
+and `ops.down_chain` (a whole DownsampleBlock).
 """
 
 from .conv import (  # noqa: F401

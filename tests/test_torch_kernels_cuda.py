@@ -13,12 +13,19 @@ import torch
 
 from svcc23_fastsvc_tpu_torch.models.fastsvc import FastSVCGenerator
 from svcc23_fastsvc_tpu_torch.models.hnusfgan import HNUSFGANGenerator
+from svcc23_fastsvc_tpu_torch.ops.down_chain import (
+    down_chain_fwd,
+    down_chain_fwd_plain,
+    set_down_chain_mode,
+)
 from svcc23_fastsvc_tpu_torch.ops.pd_block import (
     pd_adaptive_block,
     pd_adaptive_block_plain,
     pd_block_halo,
     pd_fixed_block,
     pd_fixed_block_plain,
+    pd_fixed_chain,
+    pd_fixed_chain_plain,
 )
 from svcc23_fastsvc_tpu_torch.ops.sine import (
     sine_excitation,
@@ -340,6 +347,161 @@ def test_vocoder_on_the_card_matches_the_cpu(cuda, folded):
         torch.cuda.synchronize()
     assert (pd_adaptive_block.launches - before[0],
             pd_fixed_block.launches - before[1]) == (4, 5)
+    for a, b in zip(got, want):
+        assert (a.cpu() - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+
+
+# B, T, R, G, A, dilations, strided weights
+CHAIN_CASES = [
+    (2, 3200, 64, 128, 62, (1, 2, 4, 8, 16), True),  # a filter cycle's prefix
+    (2, 3200, 64, 128, 62, (1, 1, 1, 1, 1), True),   # the noise net
+    # T just above 2 x the JAX halo; at these widths the tiles are 196
+    # rows, so the last tile of T = 402 has 10 rows, within the reach of T
+    (2, 321, 64, 128, 62, (1, 2, 4, 8, 16), False),
+    (1, 402, 64, 128, 62, (1, 2, 4, 8, 16), True),
+    (1, 1007, 16, 32, 10, (1, 2, 4), False),         # T not a multiple of 32
+    (2, 960, 64, 128, 62, (2,), True),               # one block
+    (1, 1500, 8, 16, 10, (64, 64), False),           # a long reach, 2 tiles
+]
+
+
+def _chain_weights(R, G, A, dils, strided, device, dtype):
+    return [_to(_block_weights("fixed", R, G, A, 40 + j, strided), device,
+                dtype) for j in range(len(dils))]
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,T,R,G,A,dils,strided", CHAIN_CASES)
+def test_pd_fixed_chain_kernel_matches_plain(cuda, dtype, tol, B, T, R, G, A,
+                                             dils, strided):
+    x, c = (t.to(cuda, dtype) for t in _block_inputs(B, T, R, A, seed=T + A))
+    params = _chain_weights(R, G, A, dils, strided, cuda, dtype)
+    before = pd_fixed_chain.launches
+    got = pd_fixed_chain(x, c, params, dilations=dils)
+    torch.cuda.synchronize()
+    assert pd_fixed_chain.launches == before + 1
+    _close(got, pd_fixed_chain_plain(x, c, params, dilations=dils), tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pd_fixed_chain_kernel_gives_the_block_kernels_bits(cuda, dtype):
+    """Each stage sums in the block kernel's order and rounds its output to
+    the stream type, so the chain equals the blocks one after another."""
+    dils = (1, 2, 4, 8, 16)
+    x, c = (t.to(cuda, dtype) for t in _block_inputs(2, 3000, 64, 62, seed=9))
+    params = _chain_weights(64, 128, 62, dils, True, cuda, dtype)
+    want = x
+    for p, d in zip(params, dils):
+        want = pd_fixed_block(want, c, p, dilation=d)
+    got = pd_fixed_chain(x, c, params, dilations=dils)
+    assert torch.equal(got, want)
+
+
+def test_pd_fixed_chain_kernel_refuses_a_reach_too_long(cuda):
+    x, c = (t.to(cuda) for t in _block_inputs(1, 960, 16, 10, seed=0))
+    params = _chain_weights(16, 32, 10, (80, 80), False, cuda, torch.float32)
+    with pytest.raises(ValueError):  # 160 rows of reach > MAX_CHAIN_REACH
+        pd_fixed_chain(x, c, params, dilations=(80, 80))
+
+
+def _down_params(cin, C, seed, strided, device, dtype):
+    r = np.random.default_rng(seed)
+    out = {}
+    for name, K, ci in (("conv1", 3, cin), ("conv2", 3, C), ("conv3", 3, C),
+                        ("res_conv", 1, cin)):
+        w = torch.from_numpy((r.standard_normal((C, ci, K))
+                              / np.sqrt(K * ci)).astype(np.float32))
+        w = w.permute(2, 1, 0) if strided else w.permute(2, 1, 0).contiguous()
+        b = torch.from_numpy((0.1 * r.standard_normal(C)).astype(np.float32))
+        out[name] = {"w": w.to(device, dtype), "b": b.to(device, dtype)}
+    return out
+
+
+# B, T, Cin, C, dilations, strided weights
+DOWN_CASES = [
+    (2, 1600, 1, 24, (1, 2, 4), True),    # the generator's blocks, short
+    (2, 960, 24, 48, (1, 2, 4), True),
+    (2, 544, 48, 96, (1, 2, 4), True),
+    (2, 200, 96, 192, (1, 2, 4), True),
+    (1, 100, 24, 48, (1, 2, 4), False),   # T not a multiple of 32
+    (2, 20, 8, 16, (1, 2, 4), False),     # T below 2 x the JAX halo
+    (1, 5, 4, 24, (1, 2, 4), False),      # T below the reach
+    (2, 300, 16, 40, (2, 3, 5), False),   # other dilations, C % 32 != 0
+]
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,T,Cin,C,dils,strided", DOWN_CASES)
+def test_down_chain_kernel_matches_plain(cuda, dtype, tol, B, T, Cin, C, dils,
+                                         strided):
+    r = np.random.default_rng(T + C)
+    x = torch.from_numpy(r.standard_normal((B, T, Cin)).astype(np.float32))
+    x = x.to(cuda, dtype)
+    params = _down_params(Cin, C, T, strided, cuda, dtype)
+    before = down_chain_fwd.launches
+    got = down_chain_fwd(x, params, dilations=dils)
+    torch.cuda.synchronize()
+    assert down_chain_fwd.launches == before + 1
+    _close(got, down_chain_fwd_plain(x, params, dilations=dils), tol)
+
+
+def test_down_chain_kernel_rejects_a_strided_input(cuda):
+    x = torch.zeros((64, 2, 24), device=cuda).transpose(0, 1)
+    with pytest.raises(ValueError):
+        down_chain_fwd(x, _down_params(24, 48, 0, False, cuda, torch.float32))
+
+
+def test_generator_with_the_down_chain_on_the_card_matches_the_cpu(cuda):
+    g = torch.Generator().manual_seed(0)
+    model = FastSVCGenerator(in_channels=8, mid_channels=(16, 8),
+                             upsampling_scales=(4, 5), spk_emb_size=12,
+                             generator=g).eval()
+    r = np.random.default_rng(1)
+    ins = [torch.from_numpy(r.standard_normal(s).astype(np.float32))
+           for s in ((2, 10, 8), (2, 200, 1), (2, 200, 1), (2, 12))]
+    set_down_chain_mode("1")
+    try:
+        with torch.no_grad():
+            want = model(*ins, fuse_film=True)
+            before = (window_conv.launches, down_chain_fwd.launches)
+            got = model.to(cuda)(*(t.to(cuda) for t in ins), fuse_film=True)
+            torch.cuda.synchronize()
+    finally:
+        set_down_chain_mode("0")
+    # 2 down blocks x 2 chains; 3 FiLM + 6 up convs x 2 blocks
+    assert (window_conv.launches - before[0],
+            down_chain_fwd.launches - before[1]) == (6 + 12, 4)
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-3 * want.abs().max().item()
+
+
+def test_vocoder_with_chains_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """FASTSVC_PD_CHAIN=5: the noise net's five blocks and the filter net's
+    (1, 2, 1, 2, 1) run as two chains, its last block alone."""
+    monkeypatch.setenv("FASTSVC_PD_CHAIN", "5")
+    g = torch.Generator().manual_seed(0)
+    hop = 40
+    model = HNUSFGANGenerator(
+        harmonic_params=dict(blockA=4, cycleA=2, blockF=0, cycleF=0),
+        noise_params=dict(blockA=0, cycleA=0, blockF=5, cycleF=5),
+        filter_params=dict(blockA=0, cycleA=0, blockF=6, cycleF=3),
+        residual_channels=16, gate_channels=32, skip_channels=16,
+        aux_channels=10, upsample_scales=(5, 4, 2), pd_frame_hop=hop,
+        generator=g).eval().fold_weight_norm_()
+    r = np.random.default_rng(2)
+    B, Tf = 2, 32
+    f0 = r.uniform(80, 400, (B, Tf))
+    d = np.repeat(8000 / (f0 * 4), hop, axis=1).astype(np.float32)
+    ins = [torch.from_numpy(a) for a in (
+        (0.1 * r.standard_normal((B, Tf * hop, 2))).astype(np.float32),
+        r.standard_normal((B, Tf + 4, 10)).astype(np.float32), d)]
+    counters = (pd_adaptive_block, pd_fixed_chain, pd_fixed_block)
+    with torch.no_grad():
+        want = model(*ins)
+        before = [k.launches for k in counters]
+        got = model.to(cuda)(*(t.to(cuda) for t in ins))
+        torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [4, 2, 1]
     for a, b in zip(got, want):
         assert (a.cpu() - b).abs().max().item() <= 1e-3 * b.abs().max().item()
 
