@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FastSVC decode and training paths and the B02
-vocoder's synthesis on one H100, each fused-chain mode too.
+"""Drive the PyTorch port's FastSVC decode and training paths, the B02
+vocoder's synthesis and the B02 acoustic model's decode on one H100, each
+fused-chain mode and the fused-conv switch too.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
@@ -77,6 +78,30 @@ Phases, each printed on one line with its elapsed seconds:
    `synthesize`, exactly 36 window-conv, 8 down-chain and 1 sine launches
    per forward, all 8 utterances against the CPU as in phase 4, the
    difference from phase 4's output, and batch times beside phase 5's.
+17. fused conv: `fused_conv1d` (#5) and its one-pass backward
+   `fused_conv1d_bwd` (#6) against their plain versions (2e-4 / 2e-2 of
+   max |ref|) at the generator's training shapes (batch 32 x 16000, T >=
+   256), two decode shapes and Tacotron2's bap conv1, f32 and bf16; two
+   backward calls bit for bit; their times, the plain versions', the
+   library's (F.conv1d; conv1d_input + conv1d_weight + a sum, three calls)
+   and the window-conv launches they displace (#2; #3 + #4).
+18. FastSVC training with FASTSVC_PALLAS_CONV=1, after the "auto" probe
+   passed on the card: phase 7 (against CPU f64,
+   two steps bit for bit) and phase 8 (`Trainer.run`, rates, launches per
+   step of #5, #6 and the window convs) again, and the device time by
+   kernel of one bf16 gan_step.
+19. decode with the switch on: exactly 59 fused-conv, 1 window-conv (the
+   384-channel FiLM conv) and 1 sine launches per forward, all 8 utterances
+   against the CPU as in phase 4, batch times beside phase 5's.
+20. B02 decode: the Tacotron2 at the recipe's width (random weights from a
+   seed) decodes 4 utterances padded to 400 frames through
+   `bin/decode_b02.py::decode_batch`, f32 and bf16, switch off and on
+   (8 fused-conv launches per forward with it: bap conv1 and conv3, the six
+   FiLM convs), against the CPU on the same prenet masks (f32 within 1e-3
+   of max |y|, else CPU f64 with 4x CPU f32's error; bf16 within twice the
+   CPU's own bf16-vs-f32 distance), frames/s; then the decoded features
+   through the vocoder (`vocode`, aux 63) and the conversion's time per
+   utterance.
 
 The line before the last is the kernels' JSON; the last line is
 `{"ok": true, "device": {...}}`, printed only when every phase passed. A
@@ -320,6 +345,209 @@ def decode_vs_cpu(dev, gens, sg, inputs, rng_states, ys):
                 f"decode {dtype} vs CPU plain: max err {err} > "
                 f"{TOL_DECODE[dtype]} x {scale}")
     return out
+
+
+def train_vs_cpu(dev, items, what=""):
+    """Phase 7 (and 18): one gen_step and one gan_step of the recipe's full
+    width on the card against the CPU, each from the seed's weights; then two
+    gan_steps from one state on the recipe's batch, f32 and bf16, with
+    bit-identical gradients."""
+    from svcc23_fastsvc_tpu_torch.config import build_train_task
+    from svcc23_fastsvc_tpu_torch.data.collate import FastSVCBatcher
+    from svcc23_fastsvc_tpu_torch.data.wire import to_device
+
+    r = np.random.default_rng(5)
+    tf2 = 16000 // HOP
+    pbatch = {
+        "ppg": r.standard_normal((2, tf2, 144)).astype(np.float32),
+        "f0": r.uniform(80, 400, (2, tf2, 1)).astype(np.float32),
+        "lft": np.repeat(0.1 * r.standard_normal((2, tf2, 1)), HOP,
+                         axis=1).astype(np.float32),
+        "spk_emb": r.standard_normal((2, 512)).astype(np.float32),
+        "audio": (0.3 * np.sin(np.arange(16000) * 0.05)[None, :, None]
+                  * np.ones((2, 1, 1))).astype(np.float32),
+        "sine": (0.1 * np.sin(np.arange(16000) * 0.08)[None, :, None]
+                 * np.ones((2, 1, 1))).astype(np.float32),
+    }
+    # each step from the same fresh state: the STFT loss's gradient is so
+    # ill-conditioned at this size that a 1e-7 relative change of the weights
+    # moves it by ~1% (f64, CPU), so after one f32 update the card's and the
+    # CPU's next gradients are no longer comparable
+    losses, grads = {}, {}
+    for phase in ("gen", "gan"):
+        for label, where, dtype in (("cpu f64", "cpu", torch.float64),
+                                    ("cpu f32", "cpu", torch.float32),
+                                    ("card f32", dev, torch.float32)):
+            task = build_train_task(TRAIN_CONFIG, device=where, seed=3)
+            task.generator.to(dtype)
+            task.discriminator.to(dtype)
+            log = grads.setdefault(label, [])
+            task.g_opt.step = recording(task.g_opt.step, log)
+            task.d_opt.step = recording(task.d_opt.step, log)
+            b = {k: v.to(dtype) for k, v in to_device(pbatch, where).items()}
+            m = getattr(task, f"{phase}_step")(b)
+            params = [p.detach() for mod in (task.generator,
+                                             task.discriminator)
+                      for p in mod.parameters()]
+            require(all(torch.isfinite(p).all().item() for p in params),
+                    f"updated weights, {phase} {label}: not finite")
+            losses.setdefault(label, {}).update(
+                {f"{phase} {k}": float(v) for k, v in m.items()})
+            del task
+    loss_rows = {}
+    for k, ref in losses["cpu f64"].items():
+        e_card = abs(losses["card f32"][k] - ref)
+        e_cpu = abs(losses["cpu f32"][k] - ref)
+        loss_rows[k] = (e_card / abs(ref), e_cpu / abs(ref))
+        require(e_card <= F32_FACTOR * e_cpu + TOL_TRAIN_LOSS * abs(ref),
+                f"train step {k}: card err {e_card}, CPU f32 err {e_cpu}, "
+                f"f64 {ref}")
+    grad_rows = {}
+    for who, got, cpu, ref in zip(("G gen", "G gan", "D gan"),
+                                  grads["card f32"], grads["cpu f32"],
+                                  grads["cpu f64"]):
+        step_scale = max(r.abs().max().item() for r in ref)
+        scales = [max(r.abs().max().item(), 1e-6 * step_scale) for r in ref]
+        rel_card = [(a - r).abs().max().item() / sc
+                    for a, r, sc in zip(got, ref, scales)]
+        rel_cpu = [(b - r).abs().max().item() / sc
+                   for b, r, sc in zip(cpu, ref, scales)]
+        # per tensor: within 4x the CPU's own f32 error plus TOL_TRAIN_GRAD
+        limits = [F32_FACTOR * rf + TOL_TRAIN_GRAD for rf in rel_cpu]
+        for i, (rc, rf, lim) in enumerate(zip(rel_card, rel_cpu, limits)):
+            require(rc <= lim, f"train step {who} gradient {i}: card err "
+                               f"{rc}, CPU f32 err {rf} (of max |ref|)")
+        flat = lambda xs: torch.cat([x.reshape(-1) for x in xs])  # noqa: E731
+        l2_card = ((flat(got) - flat(ref)).norm() / flat(ref).norm()).item()
+        l2_cpu = ((flat(cpu) - flat(ref)).norm() / flat(ref).norm()).item()
+        require(l2_card <= 2 * l2_cpu + TOL_TRAIN_L2,
+                f"train step {who} gradients: rel L2 card {l2_card}, CPU f32 "
+                f"{l2_cpu}")
+        grad_rows[who] = {
+            "tensors": len(ref),
+            "err / max |ref|, card: median, max": (
+                float(np.median(rel_card)), max(rel_card)),
+            "cpu f32: median, max": (float(np.median(rel_cpu)),
+                                     max(rel_cpu)),
+            "rel L2, card, cpu f32": (l2_card, l2_cpu),
+            "max err / limit": max(rc / lim for rc, lim in
+                                   zip(rel_card, limits)),
+            "max card err / cpu f32 err": max(rc / max(rf, 1e-30) for rc, rf
+                                              in zip(rel_card, rel_cpu)),
+        }
+    say(f"{what}train step vs CPU f64 (card f32 and CPU f32, B=2 x 16000, "
+        f"gen_step and gan_step each from the seed's weights): loss rel "
+        f"errs (card, cpu f32) {loss_rows}")
+    say(f"  gradients: {grad_rows}; card losses {losses['card f32']}")
+
+    # two gan_steps from one state give the same gradients, bit for bit
+    rbatch = to_device(FastSVCBatcher(items, batch_size=TB,
+                                      batch_length=16000, hop_size=HOP,
+                                      seed=3).sample_batch(), dev)
+    repeat = {}
+    for dt_name in ("float32", "bfloat16"):
+        runs = []
+        for _ in range(2):
+            task = build_train_task({**TRAIN_CONFIG, "compute_dtype": dt_name},
+                                    device=dev, seed=3)
+            log = []
+            task.g_opt.step = recording(task.g_opt.step, log)
+            task.d_opt.step = recording(task.d_opt.step, log)
+            task.gan_step(rbatch)
+            runs.append(log)
+            del task
+        differ = {who: sum(not torch.equal(a, b) for a, b in zip(ga, gb))
+                  for who, ga, gb in zip(("G", "D"), *runs)}
+        repeat[dt_name] = differ
+        require(differ == {"G": 0, "D": 0},
+                f"gan_step {dt_name} twice from one state: gradient tensors "
+                f"that differ {differ}")
+    say(f"{what}gan_step twice from one state (B={TB} x 16000): gradient "
+        f"tensors that differ {repeat} (cudnn.deterministic "
+        f"{torch.backends.cudnn.deterministic})")
+    return {"losses": loss_rows, "grads": grad_rows, "repeat": repeat}
+
+
+def trainer_run(dev, items, counters, what=""):
+    """Phase 8 (and 18): `Trainer.run` on the recipe's batch, 20 gen_steps
+    then 20 gan_steps, in bf16 (packed wire) and f32; the rates of each
+    phase's timed interval and the launches of each counter, set to 0 just
+    before."""
+    from svcc23_fastsvc_tpu_torch.config import build_train_task
+    from svcc23_fastsvc_tpu_torch.data.collate import FastSVCBatcher
+    from svcc23_fastsvc_tpu_torch.train.checkpoint import load_checkpoint
+    from svcc23_fastsvc_tpu_torch.train.loop import Trainer
+
+    names = ", ".join(c.__name__ for c in counters)
+    for c in counters:
+        c.launches = 0
+    train_rates, step_launches = {}, {}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        for dt_name, wire in (("bfloat16", "packed"), ("float32", "f32")):
+            cfg = {**TRAIN_CONFIG, "compute_dtype": dt_name,
+                   "wire_format": wire}
+            task = build_train_task(cfg, device=dev, seed=7)
+            log = []
+            task.gen_step = counted(task.gen_step, counters, log)
+            task.gan_step = counted(task.gan_step, counters, log)
+            batcher = FastSVCBatcher(items, batch_size=TB,
+                                     batch_length=16000, hop_size=HOP,
+                                     seed=1)
+            outdir = os.path.join(workdir, dt_name)
+            trainer = Trainer(task, batcher, config=cfg, outdir=outdir)
+            torch.cuda.reset_peak_memory_stats()
+            trainer.run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            rates = trainer.history  # one entry per LOG_STEPS steps
+            require(all(np.isfinite(v) for x in rates for v in x.values()),
+                    f"{dt_name}: non-finite losses {rates}")
+            n_steps = 4 * LOG_STEPS
+            require(task.step == n_steps and len(rates) == 4,
+                    f"{dt_name}: {task.step} steps, {len(rates)} logged")
+            # a fresh task from the last checkpoint holds the same weights
+            fresh = build_train_task(cfg, device=dev, seed=99)
+            load_checkpoint(
+                os.path.join(outdir, f"checkpoint-{n_steps}steps.pkl"), fresh)
+            for a, b in ((task.generator, fresh.generator),
+                         (task.discriminator, fresh.discriminator)):
+                for (k, v), w in zip(a.state_dict().items(),
+                                     b.state_dict().values()):
+                    require(torch.equal(v, w), f"checkpoint reload: {k}")
+            require(fresh.step == n_steps and fresh.g_opt.count == n_steps
+                    and fresh.d_opt.count == n_steps // 2,
+                    "checkpoint reload: counts")
+            for phase, warm, timed in (("gen", 0, 1), ("gan", 2, 3)):
+                train_rates[f"{phase} {dt_name}"] = {
+                    "steps_per_s": rates[timed]["steps_per_s"],
+                    "audio_s_per_s": rates[timed]["audio_s_per_s"],
+                    "warm_up_interval_steps_per_s":
+                        rates[warm]["steps_per_s"],
+                    "peak_mem_gib": peak / 2 ** 30,
+                    f"launches_per_step ({names})": log[LOG_STEPS * timed],
+                }
+            step_launches[dt_name] = log
+            say(f"{what}train {dt_name} ({wire} wire): mean losses to step "
+                + "; ".join(f"{x['step']}: G {x['generator_loss']:.4f}"
+                            + (f" D {x['discriminator_loss']:.4f}"
+                               if "discriminator_loss" in x else "")
+                            for x in rates))
+            del task, fresh, trainer
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    half = 2 * LOG_STEPS  # the gen_steps, then the gan_steps
+    for log in step_launches.values():
+        require(all(row == log[0] for row in log[:half])
+                and all(row == log[half] for row in log[half:]),
+                f"launches differ between steps of a phase: {log}")
+        require(all(n > 0 for n in log[0]) and all(n > 0 for n in log[half]),
+                f"a kernel was not launched in a training step: {log}")
+    train_launches = {c.__name__: c.launches for c in counters}
+    say(f"{what}train main path: launches {train_launches}")
+    for k, v in train_rates.items():
+        say(f"{what}train {k}: {v}")
+    return train_rates, train_launches
 
 
 def vocoder_phases(dev, phases):
@@ -758,6 +986,382 @@ def down_chain_phases(dev, phases, gens, sg, inputs, rng_states, ys_off,
     return rows, launches
 
 
+# (what it is, B, T, Cin, Cout, dilation, input leaky) of the fused conv's
+# shapes: the generator's training convs at the recipe's batch (T >= 256),
+# two of decode's (8 x 400 frames) and Tacotron2's bap conv1 (4 x 400)
+FUSED_SHAPES = [
+    ("train down block conv1", TB, 16000, 1, 24, 1, 0.2),
+    ("train last up block conv3", TB, 16000, 24, 24, 27, 0.2),
+    ("train up block 3 conv2", TB, 3200, 48, 48, 9, 0.2),
+    ("train up block 2 conv1", TB, 800, 96, 96, 3, 0.2),
+    ("decode down block conv1", B, 64000, 1, 24, 1, 0.2),
+    ("decode up block 1 conv_first", B, 400, 144, 192, 1, None),
+    ("tacotron2 bap conv1", 4, 400, 86, 43, 2, None),
+]
+# B02 Tacotron2 at the width egs/svcc23/baseline02/conf/taco2.yaml and the
+# JAX package's bin/train_b02.py give it (hidden 1024, econv 512, prenet
+# 256 at the model's defaults); 4 utterances padded to 400 frames
+TACO_CONFIG = {"generator_params": {
+    "input_dim": 256, "output_dim": 60, "dec_layers": 2,
+    "multi_speaker": True, "spk_emb_dim": 512, "integrate_logf0": True}}
+TB2, TF2 = 4, 400
+TACO_LENGTHS = (400, 371, 310, 256)
+
+
+def fused_conv_phases(dev, phases, items, gens, sg, inputs, rng_states,
+                      ys_off, rate_off, train_rates_off):
+    """Phases 17-20: the fused-conv kernels (#5, #6) against their plain
+    versions, the library and the window-conv launches they displace; then
+    FastSVC training and decode with FASTSVC_PALLAS_CONV=1, and the B02
+    acoustic model's decode with the switch off and on, chained into the
+    vocoder."""
+    from svcc23_fastsvc_tpu_torch.bin.common import deterministic_cudnn
+    from svcc23_fastsvc_tpu_torch.bin.decode_fastsvc import synthesize
+    from svcc23_fastsvc_tpu_torch.config import build_train_task
+    from svcc23_fastsvc_tpu_torch.data.collate import FastSVCBatcher
+    from svcc23_fastsvc_tpu_torch.data.wire import to_device
+    from svcc23_fastsvc_tpu_torch.ops.conv import (
+        decide_conv_lowering,
+        set_pallas_conv_mode,
+    )
+    from svcc23_fastsvc_tpu_torch.ops.fused_conv import (
+        fused_conv1d,
+        fused_conv1d_bwd,
+        fused_conv1d_bwd_plain,
+        fused_conv1d_plain,
+    )
+    from svcc23_fastsvc_tpu_torch.ops.sine import sine_excitation
+    from svcc23_fastsvc_tpu_torch.ops.window_conv import (
+        window_conv,
+        window_conv_dx,
+        window_conv_wgrad,
+    )
+
+    F = torch.nn.functional
+    tgrad = torch.nn.grad
+
+    # 17. the kernels on their own, f32 and bf16
+    t = time.perf_counter()
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for dtype in (torch.float32, torch.bfloat16):
+        for what, nb, T, cin, cout, dil, slope in FUSED_SHAPES:
+            x = torch.randn((nb, T, cin), generator=gen, device=dev).to(dtype)
+            g = torch.randn((nb, T, cout), generator=gen, device=dev).to(dtype)
+            w = (torch.randn((3, cin, cout), generator=gen, device=dev)
+                 / (3 * cin) ** 0.5).to(dtype)
+            b = (torch.randn((cout,), generator=gen, device=dev) * 0.1).to(
+                dtype)
+            got = (fused_conv1d(x, w, b, dil, dil, dil, slope),
+                   *fused_conv1d_bwd(x, g, w, dil, dil, dil, slope))
+            want = (fused_conv1d_plain(x, w, b, dil, dil, dil, slope),
+                    *fused_conv1d_bwd_plain(x, g, w, dil, dil, dil, slope))
+            torch.cuda.synchronize()
+            errs = {}
+            for part, a, c in zip(("y", "dx", "dw", "db"), got, want):
+                err = (a.float() - c.float()).abs().max().item()
+                scale = c.float().abs().max().item()
+                require(torch.isfinite(a).all().item(),
+                        f"fused conv {part} {what}: non-finite")
+                require(err <= TOL_CONV[dtype] * scale,
+                        f"fused conv {part} {what} {dtype}: max err {err} > "
+                        f"{TOL_CONV[dtype]} x {scale}")
+                errs[part] = err
+            again = fused_conv1d_bwd(x, g, w, dil, dil, dil, slope)
+            require(all(torch.equal(a, c) for a, c in zip(got[1:], again)),
+                    f"fused conv backward {what} {dtype}: two calls differ")
+            # the library's layouts: channels first, activation applied
+            xa = F.leaky_relu(x, slope) if slope is not None else x
+            xt, gt = (v.transpose(1, 2).contiguous() for v in (xa, g))
+            wt = w.permute(2, 1, 0).contiguous()
+            esize = x.element_size()
+            ops = 2 * nb * T * 3 * cin * cout
+            shape = f"({nb},{T},{cin})->{cout} d={dil}"
+            dt = str(dtype)[6:]
+            fwd_bytes = (x.numel() + w.numel() + b.numel()
+                         + nb * T * cout) * esize
+            bwd_bytes = ((2 * x.numel() + g.numel() + w.numel()) * esize
+                         + (w.numel() + cout) * 4)
+            for name, nbytes, n_ops, err, fn, plain, lib, repl, line in (
+                ("fused_conv1d", fwd_bytes, ops, errs["y"],
+                 lambda: fused_conv1d(x, w, b, dil, dil, dil, slope),
+                 lambda: fused_conv1d_plain(x, w, b, dil, dil, dil, slope),
+                 lambda: F.conv1d(xt, wt, b, padding=dil, dilation=dil),
+                 lambda: window_conv(x, w, b, dil, slope), 205),
+                ("fused_conv1d_bwd", bwd_bytes, 2 * ops,
+                 max(errs["dx"], errs["dw"], errs["db"]),
+                 lambda: fused_conv1d_bwd(x, g, w, dil, dil, dil, slope),
+                 lambda: fused_conv1d_bwd_plain(x, g, w, dil, dil, dil,
+                                                slope),
+                 lambda: (tgrad.conv1d_input(xt.shape, wt, gt, padding=dil,
+                                             dilation=dil),
+                          tgrad.conv1d_weight(xt, wt.shape, gt, padding=dil,
+                                              dilation=dil),
+                          gt.sum((0, 2))),
+                 lambda: (window_conv_dx(g, w, dil, x, slope),
+                          window_conv_wgrad(x, g, 3, dil, slope)), 240),
+            ):
+                b_ms, b_by = bound(nbytes, n_ops, dtype)
+                rows.append({
+                    "name": f"{name} {dt} {what} {shape}",
+                    "route": "cuda",
+                    "source": "svcc23_fastsvc_tpu_torch/csrc/fused_conv.cu",
+                    "replaces": f"svcc23_fastsvc_tpu/ops/pallas_conv.py:{line}",
+                    "max_abs_err": err,
+                    "ms": cuda_ms(fn),
+                    "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+                    "bound_ms": b_ms,
+                    "bound_by": b_by,
+                    "library_ms": cuda_ms(lib),
+                    "library": ("F.conv1d" if name == "fused_conv1d" else
+                                "conv1d_input + conv1d_weight + sum: three "
+                                "calls"),
+                    "replaced_ms": cuda_ms(repl),
+                    "replaced": ("window_conv" if name == "fused_conv1d"
+                                 else "window_conv_dx + window_conv_wgrad"),
+                })
+                k = rows[-1]
+                say(f"{k['name']}: max err {err:.3e}; {k['ms']:.4f} ms (plain "
+                    f"{k['plain_ms']:.4f}, library {k['library_ms']:.4f}, "
+                    f"the window-conv launches it displaces "
+                    f"{k['replaced_ms']:.4f}, bound {k['bound_ms']:.4f} by "
+                    f"{k['bound_by']})")
+            del x, g, w, b, got, want, again, xt, gt
+    phases["fused_kernels_s"] = time.perf_counter() - t
+
+    # 18. FastSVC training with the switch on, cuDNN deterministic as in
+    # phases 7-9
+    t = time.perf_counter()
+    counters = (fused_conv1d, fused_conv1d_bwd, window_conv, window_conv_dx,
+                window_conv_wgrad, sine_excitation)
+    deterministic_cudnn()
+    try:
+        # "auto" runs the probe (#5, #6 against their plain versions, f32
+        # and bf16) on the card; "1" then takes the kernel without it
+        set_pallas_conv_mode("auto")
+        require(decide_conv_lowering(dev) == "fused+window",
+                "the auto probe did not pass")
+        set_pallas_conv_mode("1")
+        train_vs_cpu(dev, items, "with the fused conv: ")
+        train_rates, train_launches = trainer_run(
+            dev, items, counters, "with the fused conv: ")
+        # device time of one bf16 gan_step, beside phase 9's
+        cfg = {**TRAIN_CONFIG, "compute_dtype": "bfloat16"}
+        task = build_train_task(cfg, device=dev, seed=7)
+        tbatch = to_device(FastSVCBatcher(items, batch_size=TB,
+                                          batch_length=16000, hop_size=HOP,
+                                          seed=2).sample_batch(), dev)
+        task.gan_step(tbatch)
+        per_kernel = device_ms(lambda: task.gan_step(tbatch), n=1)
+        say(f"profile gan_step bf16 with the fused conv: kernels "
+            f"{sum(per_kernel.values()):.3f} ms")
+        for kname, ms in list(per_kernel.items())[:12]:
+            say(f"  {ms:8.4f} ms  {kname[:110]}")
+        del task
+    finally:
+        set_pallas_conv_mode("0")
+        torch.backends.cudnn.deterministic = False
+    for k, v in train_rates.items():
+        off = train_rates_off[k]
+        say(f"train {k} steps/s, switch off (phase 8) -> on: "
+            f"{off['steps_per_s']:.3f} -> {v['steps_per_s']:.3f}")
+    phases["train_fused_s"] = time.perf_counter() - t
+
+    # 19. decode with the switch on, f32 then bf16
+    t = time.perf_counter()
+    ppg, f0_in, lft, emb = inputs
+    rng = torch.Generator(device=dev)
+    counters = (fused_conv1d, window_conv, sine_excitation)
+    for k in counters:
+        k.launches = 0
+    set_pallas_conv_mode("1")
+    try:
+        ys, per_fwd = {}, []
+        for dtype, g in gens.items():
+            rng.set_state(rng_states[dtype])
+            before = [k.launches for k in counters]
+            ys[dtype] = synthesize(g, sg, ppg, f0_in, lft, emb,
+                                   generator_rng=rng)
+            torch.cuda.synchronize()
+            per_fwd.append([k.launches - b for k, b in zip(counters, before)])
+            require(tuple(ys[dtype].shape) == tuple(ys_off[dtype].shape)
+                    and torch.isfinite(ys[dtype]).all().item(),
+                    f"decode with the fused conv {dtype}: output")
+        decode_launches = {k.__name__: k.launches for k in counters}
+        # every conv of phase 4's 60 but the 384-channel fused FiLM conv
+        require(per_fwd == [[59, 1, 1]] * 2,
+                f"decode with the fused conv launched {per_fwd} (fused, "
+                "window, sine) per forward; want [59, 1, 1]")
+        say(f"decode with the fused conv, main path: launches "
+            f"{decode_launches}, per forward {per_fwd[0]}")
+        err = decode_vs_cpu(dev, gens, sg, inputs, rng_states, ys)
+        say(f"decode with the fused conv vs the same module on the CPU: "
+            f"{err}")
+        audio_s = B * TF * HOP / SR
+        rate = {}
+        for dtype, g in gens.items():
+            def batch(g=g):
+                synthesize(g, sg, ppg, f0_in, lft, emb, generator_rng=rng)
+            ms = cuda_ms(batch, iters=5, warmup=2)
+            rate[str(dtype)[6:]] = {"batch_ms": ms,
+                                    "audio_s_per_s": audio_s / ms * 1e3}
+    finally:
+        set_pallas_conv_mode("0")
+    say(f"decode {B} x {TF * HOP / SR:.0f} s with the fused conv: {rate}; "
+        f"without (phase 5): {rate_off}")
+    phases["decode_fused_s"] = time.perf_counter() - t
+
+    # 20. B02 decode: Tacotron2 then the vocoder
+    t = time.perf_counter()
+    b02_launches, b02 = b02_phase(dev)
+    phases["b02_decode_s"] = time.perf_counter() - t
+
+    paths = {"train_fused": train_launches, "decode_fused": decode_launches,
+             "b02_decode_fused": b02_launches}
+    for row in rows:
+        name = row["name"].split(" ")[0]
+        row["launches"] = sum(p.get(name, 0) for p in paths.values())
+    return rows, paths
+
+
+def b02_phase(dev):
+    """Phase 20: the B02 Tacotron2 at full width (random weights from a seed)
+    decodes 4 utterances padded to 400 frames, f32 and bf16, with the switch
+    off and on, against the CPU on the same prenet masks; then the decoded
+    mcep | bap and the shifted F0 go through the vocoder (`vocode`)."""
+    from svcc23_fastsvc_tpu_torch.bin.decode_b02 import decode_batch
+    from svcc23_fastsvc_tpu_torch.bin.synthesize_b02 import (
+        signal_generator,
+        vocode,
+    )
+    from svcc23_fastsvc_tpu_torch.config import (
+        build_acoustic_model,
+        build_vocoder,
+    )
+    from svcc23_fastsvc_tpu_torch.dsp.f0 import dilated_factor
+    from svcc23_fastsvc_tpu_torch.ops.conv import set_pallas_conv_mode
+    from svcc23_fastsvc_tpu_torch.ops.fused_conv import fused_conv1d
+
+    init = torch.Generator().manual_seed(20)
+    t32 = build_acoustic_model(TACO_CONFIG, generator=init).eval()
+    r = np.random.default_rng(21)
+    shift = 2.0 ** (4 / 12)  # a 4-semitone conversion
+    f0 = np.where(r.random((TB2, TF2)) > 0.2, r.uniform(80, 300, (TB2, TF2)),
+                  0.0) * shift
+    lf0 = np.log(np.maximum(f0, 80.0))  # continuous log-F0
+    cpu_in = [torch.from_numpy(a.astype(np.float32)) for a in (
+        r.standard_normal((TB2, TF2, 256)), 0.1 * r.standard_normal(
+            (TB2, TF2, 1)), lf0[:, :, None], r.standard_normal((TB2, 512)))]
+    lengths = torch.tensor(TACO_LENGTHS)
+    masks = t32.prenet_masks(TF2, TB2, generator=torch.Generator()
+                             .manual_seed(22))
+
+    def run(model, device, args):
+        ppg, lft, lf0_, emb = (a.to(device) for a in args)
+        return decode_batch(model, ppg, lengths.to(device), lft, lf0_, emb,
+                            prenet_masks=masks.to(device))
+
+    cpu = {torch.float32: run(t32, "cpu", cpu_in)}
+    cpu[torch.bfloat16] = run(copy.deepcopy(t32).to(torch.bfloat16), "cpu",
+                              cpu_in)
+    scale = cpu[torch.float32].abs().max().item()
+    own = (cpu[torch.bfloat16] - cpu[torch.float32]).abs().max().item()
+    models = {torch.float32: copy.deepcopy(t32).to(dev)}
+    models[torch.bfloat16] = copy.deepcopy(models[torch.float32]).to(
+        torch.bfloat16)
+    out, launches, ys = {}, {}, {}
+    cpu64 = None
+    for mode in ("0", "1"):
+        set_pallas_conv_mode(mode)
+        try:
+            for dtype, model in models.items():
+                fused_conv1d.launches = 0
+                y = run(model, dev, cpu_in)
+                torch.cuda.synchronize()
+                n = fused_conv1d.launches
+                require(tuple(y.shape) == (TB2, TF2, 63)
+                        and torch.isfinite(y).all().item(),
+                        f"B02 decode {dtype} switch {mode}: output")
+                require(n == (8 if mode == "1" else 0),
+                        f"B02 decode {dtype} switch {mode}: {n} fused-conv "
+                        "launches; want 8 (bap conv1, conv3, 6 FiLM convs) "
+                        "with the switch, 0 without")
+                launches[f"{mode} {dtype}"] = n
+                err = (y.cpu() - cpu[dtype]).abs().max().item()
+                key = f"switch {mode} {str(dtype)[6:]}"
+                if dtype == torch.bfloat16:
+                    held = f"CPU bf16, limit {BF16_FACTOR} x {own / scale:.3e}"
+                    ok = err <= BF16_FACTOR * own
+                elif err <= TOL_DECODE[torch.float32] * scale:
+                    held, ok = "CPU f32, limit 1e-3", True
+                else:
+                    if cpu64 is None:
+                        cpu64 = run(copy.deepcopy(t32).double(), "cpu",
+                                    [a.double() for a in cpu_in])
+                    e64 = (y.cpu().double() - cpu64).abs().max().item()
+                    e32 = (cpu[torch.float32].double() - cpu64).abs().max(
+                        ).item()
+                    held = f"CPU f64, limit {F32_FACTOR} x {e32 / scale:.3e}"
+                    ok, err = e64 <= F32_FACTOR * e32, e64
+                out[key] = {"err / max |y|": err / scale, "held to": held}
+                require(ok, f"B02 decode {key}: {err / scale} of max |y| "
+                            f"({held})")
+                ys[mode, dtype] = y
+                ms = cuda_ms(lambda model=model: run(model, dev, cpu_in),
+                             iters=3, warmup=1)
+                out[key].update(batch_ms=ms,
+                                frames_per_s=TB2 * TF2 / ms * 1e3)
+        finally:
+            set_pallas_conv_mode("0")
+    say(f"B02 decode ({TB2} x {TF2} frames) vs the CPU on the same prenet "
+        f"masks: {out}; CPU bf16 vs CPU f32 {own / scale:.3e} of max |y|")
+    for dtype, model in models.items():
+        def batch(model=model):
+            run(model, dev, cpu_in)
+        t_wall = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_wall) * 1e3
+        per_kernel = device_ms(batch, n=1)
+        busy = sum(per_kernel.values())
+        say(f"profile B02 decode {str(dtype)[6:]}: wall {wall_ms:.3f} ms/batch, "
+            f"kernels {busy:.3f} ms, busy {busy / wall_ms:.1%}")
+        for kname, kms in list(per_kernel.items())[:8]:
+            say(f"  {kms:8.4f} ms {kms / busy:6.1%}  {kname[:110]}")
+
+    # the vocoder of phases 11-14 at aux 63 (mcep | bap), 24 kHz, hop 160
+    voc_cfg = {**VOC_CONFIG, "generator_params": {
+        **VOC_CONFIG["generator_params"], "aux_channels": 63}}
+    voc = build_vocoder(voc_cfg, generator=torch.Generator().manual_seed(23))
+    voc = voc.fold_weight_norm_().to(dev).eval()
+    vsg = signal_generator(voc_cfg)
+    df = np.stack([np.repeat(dilated_factor(f, VSR, 4), VHOP) for f in f0])
+    f0_d = torch.from_numpy(f0.astype(np.float32))[:, :, None].to(dev)
+    df_d = torch.from_numpy(df.astype(np.float32)).to(dev)
+    rng = torch.Generator(device=dev).manual_seed(24)
+    conv = {}
+    for dtype, model in models.items():
+        vdt = copy.deepcopy(voc).to(dtype)
+
+        def convert(model=model, vdt=vdt):
+            feats = run(model, dev, cpu_in)
+            aux = torch.cat([feats[:, :1], feats[:, :1], feats,
+                             feats[:, -1:], feats[:, -1:]], 1)
+            return vocode(vdt, vsg, f0_d, aux, df_d, generator_rng=rng)
+        y = convert()
+        require(tuple(y.shape) == (TB2, TF2 * VHOP, 1)
+                and torch.isfinite(y).all().item(),
+                f"B02 conversion {dtype}: output")
+        ms = cuda_ms(convert, iters=3, warmup=1)
+        conv[str(dtype)[6:]] = {"batch_ms": ms, "ms_per_utterance": ms / TB2,
+                                "audio_s_per_s": TB2 * TF2 * VHOP / VSR
+                                / ms * 1e3}
+    say(f"B02 conversion (decode + vocode, {TB2} x {TF2 * VHOP / VSR:.2f} s, "
+        f"switch off): {conv}")
+    return {"fused_conv1d": sum(launches.values())}, {"decode": out,
+                                                      "conversion": conv}
+
+
 def main():
     # 1. device
     require(torch.cuda.is_available(), "no CUDA device: chip_smoke.py runs "
@@ -1003,198 +1607,17 @@ def main():
     from svcc23_fastsvc_tpu_torch.config import build_train_task
     from svcc23_fastsvc_tpu_torch.data.collate import FastSVCBatcher
     from svcc23_fastsvc_tpu_torch.data.wire import to_device
-    from svcc23_fastsvc_tpu_torch.train.checkpoint import load_checkpoint
-    from svcc23_fastsvc_tpu_torch.train.loop import Trainer
 
     deterministic_cudnn()
-    r = np.random.default_rng(5)
-    tf2 = 16000 // HOP
-    pbatch = {
-        "ppg": r.standard_normal((2, tf2, 144)).astype(np.float32),
-        "f0": r.uniform(80, 400, (2, tf2, 1)).astype(np.float32),
-        "lft": np.repeat(0.1 * r.standard_normal((2, tf2, 1)), HOP,
-                         axis=1).astype(np.float32),
-        "spk_emb": r.standard_normal((2, 512)).astype(np.float32),
-        "audio": (0.3 * np.sin(np.arange(16000) * 0.05)[None, :, None]
-                  * np.ones((2, 1, 1))).astype(np.float32),
-        "sine": (0.1 * np.sin(np.arange(16000) * 0.08)[None, :, None]
-                 * np.ones((2, 1, 1))).astype(np.float32),
-    }
-    # each step from the same fresh state: the STFT loss's gradient is so
-    # ill-conditioned at this size that a 1e-7 relative change of the weights
-    # moves it by ~1% (f64, CPU), so after one f32 update the card's and the
-    # CPU's next gradients are no longer comparable
-    losses, grads = {}, {}
-    for phase in ("gen", "gan"):
-        for label, where, dtype in (("cpu f64", "cpu", torch.float64),
-                                    ("cpu f32", "cpu", torch.float32),
-                                    ("card f32", dev, torch.float32)):
-            task = build_train_task(TRAIN_CONFIG, device=where, seed=3)
-            task.generator.to(dtype)
-            task.discriminator.to(dtype)
-            log = grads.setdefault(label, [])
-            task.g_opt.step = recording(task.g_opt.step, log)
-            task.d_opt.step = recording(task.d_opt.step, log)
-            b = {k: v.to(dtype) for k, v in to_device(pbatch, where).items()}
-            m = getattr(task, f"{phase}_step")(b)
-            params = [p.detach() for mod in (task.generator,
-                                             task.discriminator)
-                      for p in mod.parameters()]
-            require(all(torch.isfinite(p).all().item() for p in params),
-                    f"updated weights, {phase} {label}: not finite")
-            losses.setdefault(label, {}).update(
-                {f"{phase} {k}": float(v) for k, v in m.items()})
-            del task
-    loss_rows = {}
-    for k, ref in losses["cpu f64"].items():
-        e_card = abs(losses["card f32"][k] - ref)
-        e_cpu = abs(losses["cpu f32"][k] - ref)
-        loss_rows[k] = (e_card / abs(ref), e_cpu / abs(ref))
-        require(e_card <= F32_FACTOR * e_cpu + TOL_TRAIN_LOSS * abs(ref),
-                f"train step {k}: card err {e_card}, CPU f32 err {e_cpu}, "
-                f"f64 {ref}")
-    grad_rows = {}
-    for who, got, cpu, ref in zip(("G gen", "G gan", "D gan"),
-                                  grads["card f32"], grads["cpu f32"],
-                                  grads["cpu f64"]):
-        step_scale = max(r.abs().max().item() for r in ref)
-        scales = [max(r.abs().max().item(), 1e-6 * step_scale) for r in ref]
-        rel_card = [(a - r).abs().max().item() / sc
-                    for a, r, sc in zip(got, ref, scales)]
-        rel_cpu = [(b - r).abs().max().item() / sc
-                   for b, r, sc in zip(cpu, ref, scales)]
-        # per tensor: within 4x the CPU's own f32 error plus TOL_TRAIN_GRAD
-        limits = [F32_FACTOR * rf + TOL_TRAIN_GRAD for rf in rel_cpu]
-        for i, (rc, rf, lim) in enumerate(zip(rel_card, rel_cpu, limits)):
-            require(rc <= lim, f"train step {who} gradient {i}: card err "
-                               f"{rc}, CPU f32 err {rf} (of max |ref|)")
-        flat = lambda xs: torch.cat([x.reshape(-1) for x in xs])  # noqa: E731
-        l2_card = ((flat(got) - flat(ref)).norm() / flat(ref).norm()).item()
-        l2_cpu = ((flat(cpu) - flat(ref)).norm() / flat(ref).norm()).item()
-        require(l2_card <= 2 * l2_cpu + TOL_TRAIN_L2,
-                f"train step {who} gradients: rel L2 card {l2_card}, CPU f32 "
-                f"{l2_cpu}")
-        grad_rows[who] = {
-            "tensors": len(ref),
-            "err / max |ref|, card: median, max": (
-                float(np.median(rel_card)), max(rel_card)),
-            "cpu f32: median, max": (float(np.median(rel_cpu)),
-                                     max(rel_cpu)),
-            "rel L2, card, cpu f32": (l2_card, l2_cpu),
-            "max err / limit": max(rc / lim for rc, lim in
-                                   zip(rel_card, limits)),
-            "max card err / cpu f32 err": max(rc / max(rf, 1e-30) for rc, rf
-                                              in zip(rel_card, rel_cpu)),
-        }
-    say(f"train step vs CPU f64 (card f32 and CPU f32, B=2 x 16000, "
-        f"gen_step and gan_step each from the seed's weights): loss rel "
-        f"errs (card, cpu f32) {loss_rows}")
-    say(f"  gradients: {grad_rows}; card losses {losses['card f32']}")
-
-    # two gan_steps from one state give the same gradients, bit for bit
     items = recipe_dataset()
-    rbatch = to_device(FastSVCBatcher(items, batch_size=TB,
-                                      batch_length=16000, hop_size=HOP,
-                                      seed=3).sample_batch(), dev)
-    repeat = {}
-    for dt_name in ("float32", "bfloat16"):
-        runs = []
-        for _ in range(2):
-            task = build_train_task({**TRAIN_CONFIG, "compute_dtype": dt_name},
-                                    device=dev, seed=3)
-            log = []
-            task.g_opt.step = recording(task.g_opt.step, log)
-            task.d_opt.step = recording(task.d_opt.step, log)
-            task.gan_step(rbatch)
-            runs.append(log)
-            del task
-        differ = {who: sum(not torch.equal(a, b) for a, b in zip(ga, gb))
-                  for who, ga, gb in zip(("G", "D"), *runs)}
-        repeat[dt_name] = differ
-        require(differ == {"G": 0, "D": 0},
-                f"gan_step {dt_name} twice from one state: gradient tensors "
-                f"that differ {differ}")
-    say(f"gan_step twice from one state (B={TB} x 16000): gradient tensors "
-        f"that differ {repeat} (cudnn.deterministic "
-        f"{torch.backends.cudnn.deterministic})")
+    train_vs_cpu(dev, items)
     phases["train_vs_cpu_s"] = time.perf_counter() - t
 
     # 8. the recipe's batch through Trainer.run, both phases, bf16 and f32
     t = time.perf_counter()
     counters = (window_conv, window_conv_dx, window_conv_wgrad,
                 sine_excitation)
-    for c in counters:
-        c.launches = 0
-    train_rates, step_launches = {}, {}
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        for dt_name, wire in (("bfloat16", "packed"), ("float32", "f32")):
-            cfg = {**TRAIN_CONFIG, "compute_dtype": dt_name,
-                   "wire_format": wire}
-            task = build_train_task(cfg, device=dev, seed=7)
-            log = []
-            task.gen_step = counted(task.gen_step, counters, log)
-            task.gan_step = counted(task.gan_step, counters, log)
-            batcher = FastSVCBatcher(items, batch_size=TB,
-                                     batch_length=16000, hop_size=HOP,
-                                     seed=1)
-            outdir = os.path.join(workdir, dt_name)
-            trainer = Trainer(task, batcher, config=cfg, outdir=outdir)
-            torch.cuda.reset_peak_memory_stats()
-            trainer.run()
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
-            rates = trainer.history  # one entry per LOG_STEPS steps
-            require(all(np.isfinite(v) for x in rates for v in x.values()),
-                    f"{dt_name}: non-finite losses {rates}")
-            n_steps = 4 * LOG_STEPS
-            require(task.step == n_steps and len(rates) == 4,
-                    f"{dt_name}: {task.step} steps, {len(rates)} logged")
-            # a fresh task from the last checkpoint holds the same weights
-            fresh = build_train_task(cfg, device=dev, seed=99)
-            load_checkpoint(
-                os.path.join(outdir, f"checkpoint-{n_steps}steps.pkl"), fresh)
-            for a, b in ((task.generator, fresh.generator),
-                         (task.discriminator, fresh.discriminator)):
-                for (k, v), w in zip(a.state_dict().items(),
-                                     b.state_dict().values()):
-                    require(torch.equal(v, w), f"checkpoint reload: {k}")
-            require(fresh.step == n_steps and fresh.g_opt.count == n_steps
-                    and fresh.d_opt.count == n_steps // 2,
-                    "checkpoint reload: counts")
-            for phase, warm, timed in (("gen", 0, 1), ("gan", 2, 3)):
-                train_rates[f"{phase} {dt_name}"] = {
-                    "steps_per_s": rates[timed]["steps_per_s"],
-                    "audio_s_per_s": rates[timed]["audio_s_per_s"],
-                    "warm_up_interval_steps_per_s":
-                        rates[warm]["steps_per_s"],
-                    "peak_mem_gib": peak / 2 ** 30,
-                    "launches_per_step (fwd, dx, wgrad, sine)":
-                        log[LOG_STEPS * timed],
-                }
-            step_launches[dt_name] = log
-            say(f"train {dt_name} ({wire} wire): mean losses to step "
-                + "; ".join(f"{x['step']}: G {x['generator_loss']:.4f}"
-                            + (f" D {x['discriminator_loss']:.4f}"
-                               if "discriminator_loss" in x else "")
-                            for x in rates))
-            del task, fresh, trainer
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    half = 2 * LOG_STEPS  # the gen_steps, then the gan_steps
-    for log in step_launches.values():
-        require(all(row == log[0] for row in log[:half])
-                and all(row == log[half] for row in log[half:]),
-                f"launches differ between steps of a phase: {log}")
-        require(all(n > 0 for n in log[0]) and all(n > 0 for n in log[half]),
-                f"a kernel was not launched in a training step: {log}")
-    train_launches = {"window_conv": window_conv.launches,
-                      "window_conv_dx": window_conv_dx.launches,
-                      "window_conv_wgrad": window_conv_wgrad.launches,
-                      "sine_excitation": sine_excitation.launches}
-    say(f"train main path: launches {train_launches}")
-    for k, v in train_rates.items():
-        say(f"train {k}: {v}")
+    train_rates, train_launches = trainer_run(dev, items, counters)
     phases["train_s"] = time.perf_counter() - t
 
     # 9. profile one bf16 gan_step
@@ -1284,8 +1707,15 @@ def main():
         dev, phases, {torch.float32: g32, torch.bfloat16: g16}, sg,
         (ppg, f0_in, lft, emb), rng_states, ys, decode_rate)
     kernels += down_rows
+
+    # 17-20. the fused conv's kernels, FastSVC training and decode with the
+    # switch on, and B02 decode
+    fused_rows, fused_paths = fused_conv_phases(
+        dev, phases, items, {torch.float32: g32, torch.bfloat16: g16}, sg,
+        (ppg, f0_in, lft, emb), rng_states, ys, decode_rate, train_rates)
+    kernels += fused_rows
     paths = {"decode": launches, "train": train_launches, **voc_launches,
-             "decode_chain": down_launches}
+             "decode_chain": down_launches, **fused_paths}
     for row in kernels:
         name = row["name"].split(" ")[0]
         row["launches_by_path"] = {p: n.get(name, 0) for p, n in paths.items()}

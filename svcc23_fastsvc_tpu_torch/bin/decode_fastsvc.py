@@ -31,6 +31,7 @@ from ..config import (
 from ..data.dataset import FastSVCDataset
 from ..data.hdf5 import read_hdf5
 from ..dsp.f0 import F0Statistics
+from ..ops.conv import decide_conv_lowering
 from ..train.checkpoint import load_generator_state
 from .common import disable_tf32, setup_logging, utt_speaker, write_wav
 
@@ -100,8 +101,9 @@ def decode(
     idt = parse_compute_dtype(
         infer_dtype or cfg.get("infer_dtype", cfg.get("compute_dtype")))
     generator, steps = load_generator(checkpoint, cfg, device=device, dtype=idt)
-    logging.info("loaded checkpoint step %d from %s (%s, %s)", steps,
-                 checkpoint, device, idt or torch.float32)
+    logging.info("loaded checkpoint step %d from %s (%s, %s; conv lowering "
+                 "%s)", steps, checkpoint, device, idt or torch.float32,
+                 decide_conv_lowering(device))
     sig_gen = build_signal_generator(cfg)
     rng = torch.Generator(device=device).manual_seed(0)
 

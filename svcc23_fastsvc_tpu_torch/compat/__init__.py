@@ -5,4 +5,5 @@ from .jax_params import (  # noqa: F401
     generator_state_dict_from_jax,
     hnusfgan_state_dict_from_jax,
     melgan_msd_state_dict_from_jax,
+    tacotron2_state_dict_from_jax,
 )

@@ -1,15 +1,16 @@
 """Carry weights from the JAX package's layout to the port.
 
-`generator_state_dict_from_jax`, `melgan_msd_state_dict_from_jax` and
-`hnusfgan_state_dict_from_jax` are the inverses of the JAX package's
-`compat/torch_weights.py::convert_fastsvc_generator`, `convert_melgan_msd`
-and `convert_hnusfgan`; `downsample_block_state_dict_from_jax` carries one
+`generator_state_dict_from_jax`, `melgan_msd_state_dict_from_jax`,
+`hnusfgan_state_dict_from_jax` and `tacotron2_state_dict_from_jax` are the
+inverses of the JAX package's `compat/torch_weights.py::
+convert_fastsvc_generator`, `convert_melgan_msd`, `convert_hnusfgan` and
+`convert_tacotron2`; `downsample_block_state_dict_from_jax` carries one
 of the generator's DownsampleBlocks. Each takes a JAX param pytree as
 numpy arrays, either in weight-norm form ({"v", "g", "b"} leaves, WIO v) or
 folded ({"w", "b"}), and returns a state dict with the reference torch keys
 that `models.fastsvc.FastSVCGenerator`, `DownsampleBlock`,
-`MelGANMultiScaleDiscriminator` or `models.hnusfgan.HNUSFGANGenerator`
-loads (built with `use_weight_norm` matching the form). No JAX import:
+`MelGANMultiScaleDiscriminator`, `models.hnusfgan.HNUSFGANGenerator` or
+`models.tacotron2.Tacotron2` loads (built with `use_weight_norm` matching the form). No JAX import:
 the arrays only need `numpy.asarray`.
 """
 
@@ -118,4 +119,53 @@ def hnusfgan_state_dict_from_jax(params) -> dict:
         _conv(sd, f"periodicity_estimator.layers.{2 * i}", p)
     _conv(sd, "conv_last.1", params["last1"])
     _conv(sd, "conv_last.3", params["last2"])
+    return sd
+
+
+def _linear_sd(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["w"]).T)
+    if "b" in p:
+        sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def _cell_sd(sd, prefix, p, suffix=""):
+    for name in ("ih", "hh"):
+        sd[f"{prefix}.weight_{name}{suffix}"] = _t(np.asarray(p[f"w_{name}"]).T)
+        sd[f"{prefix}.bias_{name}{suffix}"] = _t(p[f"b_{name}"])
+
+
+def _bn_sd(sd, prefix, p):
+    for key, name in (("w", "weight"), ("b", "bias"), ("mean", "running_mean"),
+                      ("var", "running_var")):
+        sd[f"{prefix}.{name}"] = _t(p[key])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def tacotron2_state_dict_from_jax(params) -> dict:
+    """JAX Tacotron2 params (batch-norm running statistics included) -> the
+    port's `state_dict`."""
+    sd = {}
+    enc = params["encoder"]
+    _linear_sd(sd, "encoder.input_layer", enc["input_layer"])
+    for i, cp in enumerate(enc["convs"]):
+        _conv(sd, f"encoder.convs.{i}.0", cp["conv"])
+        _bn_sd(sd, f"encoder.convs.{i}.1", cp["bn"])
+    _cell_sd(sd, "encoder.blstm", enc["blstm"]["fwd"], "_l0")
+    _cell_sd(sd, "encoder.blstm", enc["blstm"]["bwd"], "_l0_reverse")
+    for i, lp in enumerate(params["prenet"]):
+        _linear_sd(sd, f"prenet.prenet.{i}.0", lp)
+    for i, dp in enumerate(params["decs"]):
+        _cell_sd(sd, f"decs.{i}.cell", dp["cell"])
+        _linear_sd(sd, f"decs.{i}.pj", dp["pj"])
+    _linear_sd(sd, "proj", params["proj"])
+    bap = params["bap_decoder"]
+    for j, key in ((0, "conv0"), (3, "conv1"), (6, "conv2"), (9, "conv3")):
+        _conv(sd, f"bap_decoder.{j}", bap[key])
+    _bn_sd(sd, "bap_decoder.10", bap["bn"])
+    for name in ("logf0", "lft"):
+        if f"{name}_film" in params:
+            for key, p in params[f"{name}_film"].items():
+                _conv(sd, f"{name}_film_net.{key}", p)
+    if "spk_emb_projection" in params:
+        _linear_sd(sd, "spk_emb_projection", params["spk_emb_projection"])
     return sd

@@ -3,8 +3,10 @@
 Counterpart of `svcc23_fastsvc_tpu/config.py` for the keys of the recipe's
 conf/fastsvc.yaml that decode and training read, and of
 `svcc23_fastsvc_tpu/bin/synthesize_b02.py::build_vocoder` for the B02
-vocoder's config.yml. The merged FastSVC config is dumped into the
-experiment dir as config.yml, which decode reads back.
+vocoder's config.yml, and of the acoustic model that
+`svcc23_fastsvc_tpu/bin/train_b02.py::build_b02_task` builds for the B02
+Tacotron2's. The merged FastSVC config is dumped into the experiment dir
+as config.yml, which decode reads back.
 `yaml` is imported only when a file is read or written, so the package
 imports where PyYAML is missing.
 """
@@ -141,6 +143,22 @@ def build_vocoder(cfg: dict, *, device=None, generator=None, **kw):
         kw["upsample_scales"] = tuple(gp["upsample_params"]["upsample_scales"])
     kw["pd_frame_hop"] = cfg.get("hop_size", 0)
     return HNUSFGANGenerator(**kw, device=device, generator=generator)
+
+
+# the Tacotron2 keys the JAX package's build_b02_task reads from
+# generator_params; the rest stay at the model's defaults
+_ACOUSTIC_KEYS = ("input_dim", "output_dim", "hidden_dim", "dec_layers",
+                  "multi_speaker", "spk_emb_dim", "integrate_logf0",
+                  "econv_chans", "prenet_dim")
+
+
+def build_acoustic_model(cfg: dict, *, device=None, generator=None):
+    """The B02 Tacotron2 from a config's `generator_params`."""
+    from .models.tacotron2 import Tacotron2
+
+    gp = cfg.get("generator_params", {})
+    kw = {k: gp[k] for k in _ACOUSTIC_KEYS if k in gp}
+    return Tacotron2(**kw, device=device, generator=generator)
 
 
 def parse_compute_dtype(dtype_name):

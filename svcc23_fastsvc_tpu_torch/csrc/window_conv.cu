@@ -12,8 +12,9 @@ extern "C" int window_conv_fwd_f32(const void* x, const void* w, const void* b,
                                    long long swi, long long swo, int has_leaky,
                                    float slope, void* stream) {
   return dispatch_window_conv<float, 0>(x, w, b, nullptr, y, B, T_len, Cin,
-                                        Cout, K, dil, swk, swi, swo,
-                                        has_leaky, slope, 0.f, stream);
+                                        Cout, K, dil, (K - 1) / 2 * dil, swk,
+                                        swi, swo, has_leaky, slope, 0.f,
+                                        stream);
 }
 
 extern "C" int window_conv_fwd_bf16(const void* x, const void* w, const void* b,
@@ -22,6 +23,7 @@ extern "C" int window_conv_fwd_bf16(const void* x, const void* w, const void* b,
                                     long long swi, long long swo,
                                     int has_leaky, float slope, void* stream) {
   return dispatch_window_conv<__nv_bfloat16, 0>(x, w, b, nullptr, y, B, T_len,
-                                             Cin, Cout, K, dil, swk, swi, swo,
+                                             Cin, Cout, K, dil,
+                                             (K - 1) / 2 * dil, swk, swi, swo,
                                              has_leaky, slope, 0.f, stream);
 }

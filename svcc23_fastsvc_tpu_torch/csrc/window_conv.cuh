@@ -4,8 +4,10 @@
 //
 //   y[b, t, o] = bias[o] + sum_k sum_i act(x)[b, t - lo + k*dil, i] * w[k, i, o]
 //
-// with lo = (K-1)/2 * dil, zeros outside [0, T), act = leaky_relu(., slope)
-// applied in f32 (or the identity). f32 and bf16 in and out, f32 sums.
+// with zeros outside [0, T), act = leaky_relu(., slope) applied in f32 (or
+// the identity). f32 and bf16 in and out, f32 sums. The window conv passes
+// lo = (K-1)/2 * dil; the fused conv (fused_conv.cu) any lo in [0, span],
+// span = (K-1) * dil, the output as long as the input either way.
 //
 // The weight is read through element strides (swk, swi, swo), so a caller
 // passes a transposed or K-reversed view (a negative swk from a pointer at
@@ -67,14 +69,14 @@ __global__ void __launch_bounds__(kThreads)
 window_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
                    const T* __restrict__ bias, const T* __restrict__ mask,
                    T* __restrict__ y, int T_len, int Cin, int Cout, int K,
-                   int dil, long long swk, long long swi, long long swo,
-                   int has_leaky, float slope, float mask_slope) {
+                   int dil, int lo, long long swk, long long swi,
+                   long long swo, int has_leaky, float slope,
+                   float mask_slope) {
   constexpr int TX = TCO / 4;
   constexpr int TY = kThreads / TX;
   constexpr int TT = 4 * TY;  // output rows per block
   extern __shared__ float smem[];
-  const int lo = (K - 1) / 2 * dil;
-  const int win_rows = TT + 2 * lo;
+  const int win_rows = TT + (K - 1) * dil;
   float* win = smem;                                // win_rows x kRowStride
   float* wsm = smem + (size_t)win_rows * kRowStride;  // K x kCI x TCO
 
@@ -96,7 +98,7 @@ window_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   for (int ci0 = 0; ci0 < Cin; ci0 += kCI) {
     const int cn = min(kCI, Cin - ci0);
-    // input window rows [t0 - lo, t0 + TT + lo), zeros outside [0, T)
+    // input window rows [t0 - lo, t0 + TT + span - lo), zeros outside [0, T)
     for (int idx = threadIdx.x; idx < win_rows * kCI; idx += kThreads) {
       const int r = idx / kCI, c = idx % kCI;
       const int t = t0 - lo + r;
@@ -155,13 +157,13 @@ window_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
 template <typename T, int TCO, int kPass>
 int launch_window_conv(const void* x, const void* w, const void* b,
                        const void* mask, void* y, int B, int T_len, int Cin,
-                       int Cout, int K, int dil, long long swk, long long swi,
-                       long long swo, int has_leaky, float slope,
-                       float mask_slope, cudaStream_t stream) {
+                       int Cout, int K, int dil, int lo, long long swk,
+                       long long swi, long long swo, int has_leaky,
+                       float slope, float mask_slope, cudaStream_t stream) {
   constexpr int TT = 4 * (kThreads / (TCO / 4));
-  const int lo = (K - 1) / 2 * dil;
   const size_t smem =
-      ((size_t)(TT + 2 * lo) * kRowStride + (size_t)K * kCI * TCO) * sizeof(float);
+      ((size_t)(TT + (K - 1) * dil) * kRowStride + (size_t)K * kCI * TCO) *
+      sizeof(float);
   auto kern = window_conv_kernel<T, TCO, kPass>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -172,15 +174,15 @@ int launch_window_conv(const void* x, const void* w, const void* b,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(b), static_cast<const T*>(mask),
-      static_cast<T*>(y), T_len, Cin, Cout, K, dil, swk, swi, swo, has_leaky,
-      slope, mask_slope);
+      static_cast<T*>(y), T_len, Cin, Cout, K, dil, lo, swk, swi, swo,
+      has_leaky, slope, mask_slope);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int kPass>
 int dispatch_window_conv(const void* x, const void* w, const void* b,
                          const void* mask, void* y, int B, int T_len, int Cin,
-                         int Cout, int K, int dil, long long swk,
+                         int Cout, int K, int dil, int lo, long long swk,
                          long long swi, long long swo, int has_leaky,
                          float slope, float mask_slope, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -188,10 +190,10 @@ int dispatch_window_conv(const void* x, const void* w, const void* b,
   // so that fewer threads compute padding columns
   if (Cout <= 32)
     return launch_window_conv<T, 32, kPass>(x, w, b, mask, y, B, T_len, Cin,
-                                            Cout, K, dil, swk, swi, swo,
+                                            Cout, K, dil, lo, swk, swi, swo,
                                             has_leaky, slope, mask_slope, s);
   return launch_window_conv<T, 64, kPass>(x, w, b, mask, y, B, T_len, Cin,
-                                          Cout, K, dil, swk, swi, swo,
+                                          Cout, K, dil, lo, swk, swi, swo,
                                           has_leaky, slope, mask_slope, s);
 }
 

@@ -209,8 +209,8 @@ extern "C" int window_conv_dx_f32(const void* g, const void* w,
                                   long long swk, long long swi, long long swo,
                                   float slope, void* stream) {
   return dispatch_window_conv<float, 1>(g, w, nullptr, mask_x, dx, B, T_len,
-                                     Cout, Cin, K, dil, swk, swi, swo, 0, 0.f,
-                                     slope, stream);
+                                     Cout, Cin, K, dil, (K - 1) / 2 * dil,
+                                     swk, swi, swo, 0, 0.f, slope, stream);
 }
 
 extern "C" int window_conv_dx_bf16(const void* g, const void* w,
@@ -219,8 +219,9 @@ extern "C" int window_conv_dx_bf16(const void* g, const void* w,
                                    int dil, long long swk, long long swi,
                                    long long swo, float slope, void* stream) {
   return dispatch_window_conv<__nv_bfloat16, 1>(g, w, nullptr, mask_x, dx, B,
-                                             T_len, Cout, Cin, K, dil, swk,
-                                             swi, swo, 0, 0.f, slope, stream);
+                                             T_len, Cout, Cin, K, dil,
+                                             (K - 1) / 2 * dil, swk, swi, swo,
+                                             0, 0.f, slope, stream);
 }
 
 // x (B, T, Cin) and g (B, T, Cout) contiguous; part_w (n_splits, K, Cin,

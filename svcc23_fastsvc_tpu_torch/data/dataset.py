@@ -2,8 +2,9 @@
 
 Counterparts of `svcc23_fastsvc_tpu/data/dataset.py`'s `FastSVCDataset`
 (per utterance: utt_id, wave (T,), f0 (T',), ppg (T', C), lft (T,),
-spk_emb (1, S)) and `USFGANDataset` (the B02 vocoder's: utt_id, wave,
-aux = mcep | bap, sample-rate dilation factors, f0).
+spk_emb (1, S)), `USFGANDataset` (the B02 vocoder's: utt_id, wave,
+aux = mcep | bap, sample-rate dilation factors, f0) and `B02Dataset` (the
+B02 acoustic model's fields).
 """
 
 from __future__ import annotations
@@ -96,3 +97,31 @@ class USFGANDataset:
                                       self.dense_factor),
                        self.hop_size, axis=0)
         return self.utt_ids[idx], audio, aux, df, f0
+
+
+class B02Dataset:
+    """The B02 acoustic model's fields of every utterance under a dump
+    directory, per item (utt_id, wave, f0, ppg (T', 256), lft (T', 1), lf0
+    (T', 1), vuv, mcep (T', 60), bap (T', 3), spk_emb), read on first use
+    and kept (decode reads each utterance once per target speaker)."""
+
+    FIELDS = ("wave", "f0", "ppg", "lft", "lf0", "vuv", "mcep", "bap",
+              "spk_emb")
+
+    def __init__(self, root_dir: str):
+        files = find_files(root_dir)
+        if not files:
+            raise FileNotFoundError(f"no .h5 files under {root_dir}")
+        self.files = files
+        self.utt_ids = [os.path.splitext(os.path.basename(f))[0] for f in files]
+        self._cache = {}
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, idx: int):
+        if idx not in self._cache:
+            self._cache[idx] = (self.utt_ids[idx],) + tuple(
+                np.asarray(read_hdf5(self.files[idx], name))
+                for name in self.FIELDS)
+        return self._cache[idx]

@@ -1,8 +1,10 @@
 """Ops: primitives, resampling, excitation, STFT.
 
 The CUDA kernels' wrappers live in `ops.window_conv` (forward, dx, wgrad),
-`ops.sine`, `ops.pd_block` (the vocoder's gated blocks and their chain)
-and `ops.down_chain` (a whole DownsampleBlock).
+`ops.fused_conv` (the fused conv's forward and one-pass backward, behind
+`conv.set_pallas_conv_mode`), `ops.sine`, `ops.pd_block` (the vocoder's
+gated blocks and their chain) and `ops.down_chain` (a whole
+DownsampleBlock).
 """
 
 from .conv import (  # noqa: F401

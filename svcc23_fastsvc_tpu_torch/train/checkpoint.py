@@ -58,6 +58,25 @@ def load_vocoder(path: str, cfg: dict, *, device="cpu", dtype=None):
     return voc, steps
 
 
+def load_acoustic_model(path: str, cfg: dict, *, device="cpu", dtype=None):
+    """(B02 Tacotron2, steps) from a reference-layout checkpoint: built from
+    `cfg` (`config.build_acoustic_model`), in eval mode on `device` with
+    every floating tensor (batch-norm statistics too) in `dtype` (default
+    f32). The reference wrapper's "acoustic_network." prefix is dropped, and
+    so is its postnet, which its forward never calls."""
+    from ..config import build_acoustic_model
+
+    sd, steps = load_generator_state(path)
+    prefix = "acoustic_network."
+    sd = {k[len(prefix):] if k.startswith(prefix) else k: v
+          for k, v in sd.items()}
+    sd = {k: v for k, v in sd.items() if not k.startswith("postnet.")}
+    model = build_acoustic_model(cfg)
+    model.load_state_dict(sd)
+    model.to(device=device, dtype=dtype or torch.float32).eval()
+    return model, steps
+
+
 def save_generator_checkpoint(path: str, generator, steps: int):
     """Write `generator`'s weights in the reference layout (no optimizer)."""
     _write(path, {"model": {"generator": _cpu_state(generator)},

@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 
 from ..data.wire import WirePacker, to_device
+from ..ops.conv import decide_conv_lowering
 from .checkpoint import (
     checkpoint_path,
     latest_checkpoint,
@@ -47,6 +48,11 @@ class Trainer:
         self.config = config
         self.outdir = outdir
         self.device = task.device
+        # decide the conv lowering before the first step, as the JAX
+        # trainer does: in "auto" mode the fused-conv probe runs (and
+        # raises when it fails) here, not inside a step
+        self.conv_lowering = decide_conv_lowering(self.device)
+        logging.info("conv lowering: %s", self.conv_lowering)
         if int(config.get("steps_per_call", 1)) > 1:
             logging.info("steps_per_call %s: the port runs one step per "
                          "call", config["steps_per_call"])

@@ -18,7 +18,10 @@ bad = sorted(m for m in sys.modules
              if m in ("jax", "svcc23_fastsvc_tpu")
              or m.startswith(("jax.", "jaxlib", "svcc23_fastsvc_tpu.")))
 missing = sorted({"svcc23_fastsvc_tpu_torch.ops.down_chain",
-                  "svcc23_fastsvc_tpu_torch.ops.pd_block"} - set(names))
+                  "svcc23_fastsvc_tpu_torch.ops.pd_block",
+                  "svcc23_fastsvc_tpu_torch.ops.fused_conv",
+                  "svcc23_fastsvc_tpu_torch.models.tacotron2",
+                  "svcc23_fastsvc_tpu_torch.bin.decode_b02"} - set(names))
 print(len(names), bad + missing)
 """
 

@@ -13,10 +13,18 @@ import torch
 
 from svcc23_fastsvc_tpu_torch.models.fastsvc import FastSVCGenerator
 from svcc23_fastsvc_tpu_torch.models.hnusfgan import HNUSFGANGenerator
+from svcc23_fastsvc_tpu_torch.ops import conv as conv_mod
 from svcc23_fastsvc_tpu_torch.ops.down_chain import (
     down_chain_fwd,
     down_chain_fwd_plain,
     set_down_chain_mode,
+)
+from svcc23_fastsvc_tpu_torch.ops.fused_conv import (
+    FusedConv1d,
+    fused_conv1d,
+    fused_conv1d_bwd,
+    fused_conv1d_bwd_plain,
+    fused_conv1d_plain,
 )
 from svcc23_fastsvc_tpu_torch.ops.pd_block import (
     pd_adaptive_block,
@@ -546,3 +554,126 @@ def test_train_step_is_bit_stable_on_the_card(cuda):
         torch.backends.cudnn.deterministic = saved
     for ga, gb in zip(*runs):
         assert all(torch.equal(a, b) for a, b in zip(ga, gb))
+
+
+# B, T, Cin, Cout, K, dilation, (lo, hi), slope, bias: the JAX kernel's
+# test cases (tests/test_pallas_conv.py), K = 2 and K = 4 with pads past
+# one side, T that divides no tile (300, 750, 3000), windows past both ends
+# at d = 27, and the Tacotron2 bap stream's widths (86 -> 43 at T = 400,
+# 21 -> 3 at its T + 2 = 402)
+FUSED_CASES = [
+    (2, 1600, 24, 24, 3, 27, (27, 27), None, True),
+    (2, 1600, 24, 24, 3, 1, (1, 1), 0.2, True),
+    (1, 960, 48, 48, 3, 9, (9, 9), 0.2, False),
+    (2, 320, 1, 24, 3, 1, (1, 1), None, True),
+    (2, 640, 24, 24, 2, 1, (1, 0), None, True),
+    (2, 320, 192, 192, 3, 3, (3, 3), 0.2, True),
+    (2, 750, 24, 24, 3, 9, (9, 9), 0.2, True),
+    (1, 3000, 48, 48, 3, 27, (27, 27), None, True),
+    (2, 300, 24, 48, 3, 1, (1, 1), 0.2, False),
+    (2, 300, 24, 24, 4, 1, (2, 1), 0.2, True),
+    (2, 257, 12, 20, 4, 16, (0, 48), 0.2, True),
+    (1, 300, 8, 8, 5, 16, (64, 0), None, True),
+    (4, 400, 86, 43, 3, 2, (2, 2), None, True),
+    (4, 402, 21, 3, 3, 2, (2, 2), None, True),
+]
+
+
+def _fused_case(B, T, Cin, Cout, K, dtype, device, seed):
+    x, w, b = _conv_case(B, T, Cin, Cout, K, seed)
+    g = np.random.default_rng(seed + 1).standard_normal((B, T, Cout))
+    return (torch.from_numpy(a).to(device, dtype) for a in (x, w, b, g))
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,T,Cin,Cout,K,dil,pads,slope,bias", FUSED_CASES)
+def test_fused_conv_kernels_match_plain(cuda, dtype, tol, B, T, Cin, Cout, K,
+                                        dil, pads, slope, bias):
+    x, w, b, g = _fused_case(B, T, Cin, Cout, K, dtype, cuda, T + Cout)
+    b = b if bias else None
+    lo, hi = pads
+    before = (fused_conv1d.launches, fused_conv1d_bwd.launches)
+    y = fused_conv1d(x, w, b, lo, hi, dil, slope)
+    grads = fused_conv1d_bwd(x, g, w, lo, hi, dil, slope)
+    torch.cuda.synchronize()
+    assert (fused_conv1d.launches, fused_conv1d_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close(y, fused_conv1d_plain(x, w, b, lo, hi, dil, slope), tol)
+    for got, want in zip(grads, fused_conv1d_bwd_plain(x, g, w, lo, hi, dil,
+                                                        slope)):
+        _close(got, want, tol)
+    # a fixed partition of the rows and no atomics: the same sums every run
+    again = fused_conv1d_bwd(x, g, w, lo, hi, dil, slope)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+def test_fused_conv_kernels_take_a_strided_weight_view(cuda):
+    x, w, b, g = _fused_case(2, 400, 16, 24, 3, torch.float32, cuda, 5)
+    view = w.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+    assert not view.is_contiguous()
+    _close(fused_conv1d(x, view, b, 2, 4, 3, 0.2),
+           fused_conv1d_plain(x, w, b, 2, 4, 3, 0.2), 2e-4)
+    for got, want in zip(fused_conv1d_bwd(x, g, view, 2, 4, 3, 0.2),
+                         fused_conv1d_bwd_plain(x, g, w, 2, 4, 3, 0.2)):
+        _close(got, want, 2e-4)
+
+
+def test_fused_conv_backward_can_skip_dx(cuda):
+    x, w, _, g = _fused_case(2, 300, 1, 24, 3, torch.float32, cuda, 6)
+    dx, dw, db = fused_conv1d_bwd(x, g, w, 1, 1, 1, 0.2, need_dx=False)
+    _, want_w, want_b = fused_conv1d_bwd_plain(x, g, w, 1, 1, 1, 0.2)
+    assert dx is None
+    _close(dw, want_w, 2e-4)
+    _close(db, want_b, 2e-4)
+
+
+def test_fused_conv_function_on_the_card_matches_the_cpu(cuda):
+    x, w, b = _conv_case(2, 500, 24, 48, 3, seed=11)
+    g = np.random.default_rng(12).standard_normal((2, 500, 48)).astype(
+        np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        args = [torch.from_numpy(a).to(dev).requires_grad_()
+                for a in (x, w, b)]
+        y = FusedConv1d.apply(*args, 9, 9, 9, 0.2)
+        grads = torch.autograd.grad(y, args, torch.from_numpy(g).to(dev))
+        outs.append([t.detach().cpu() for t in (y, *grads)])
+    for got, want in zip(outs[1], outs[0]):
+        _close(got, want, 2e-4)
+
+
+def test_generator_step_with_the_switch_on_the_card_matches_the_cpu(cuda):
+    """A small generator's forward and parameter gradients with
+    FASTSVC_PALLAS_CONV=1, card against CPU (plain versions): its T = 600
+    convs take #5 and #6, the rest the window conv."""
+    model = FastSVCGenerator(in_channels=8, mid_channels=(16, 8),
+                             upsampling_scales=(4, 5), spk_emb_size=12,
+                             generator=torch.Generator().manual_seed(0))
+    r = np.random.default_rng(2)
+    ins = [torch.from_numpy(r.standard_normal(s).astype(np.float32))
+           for s in ((2, 30, 8), (2, 600, 1), (2, 600, 1), (2, 12))]
+    saved = conv_mod.pallas_conv_mode()
+    conv_mod.set_pallas_conv_mode("1")
+    try:
+        outs = []
+        for dev in ("cpu", cuda):
+            m = model.to(dev)
+            m.zero_grad()
+            before = (fused_conv1d.launches, fused_conv1d_bwd.launches)
+            y = m(*(t.to(dev) for t in ins))
+            (y * y).sum().backward()
+            if dev == cuda:
+                torch.cuda.synchronize()
+                assert (fused_conv1d.launches - before[0],
+                        fused_conv1d_bwd.launches - before[1]) == (17, 17)
+            # copies: moving the module moves its grads' storage too
+            outs.append([t.detach().cpu().clone() for t in
+                         (y, *(p.grad for p in m.parameters()))])
+    finally:
+        conv_mod.set_pallas_conv_mode(saved)
+    y_cpu, *g_cpu = outs[0]
+    y_gpu, *g_gpu = outs[1]
+    _close(y_gpu, y_cpu, 1e-4)
+    scale = max(g.abs().max().item() for g in g_cpu)
+    for a, c in zip(g_gpu, g_cpu):
+        assert (a - c).abs().max().item() <= 1e-3 * scale
