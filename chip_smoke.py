@@ -8,11 +8,14 @@ fused-chain mode and the fused-conv switch too.
 Phases, each printed on one line with its elapsed seconds:
 
 1. device: require CUDA; print the card's name and power limit.
-2. build: compile `svcc23_fastsvc_tpu_torch/csrc/*.cu` with nvcc (sm_90a).
+2. build: compile `svcc23_fastsvc_tpu_torch/csrc/*.cu` with nvcc (sm_90a);
+   where the toolkit has cuobjdump, count the HMMA instructions of every
+   window-conv and wgrad instance and require some in each mma variant.
 3. kernels: each kernel against its plain PyTorch version, in f32 (TF32
    off) and bf16: the forward at the decode shapes of a 400-frame batch of
    8, dx and wgrad at the training shapes of the recipe's batch (32 x 16000
-   samples); the sine also at a 3000-frame (30 s) bucket.
+   samples), wgrad twice bit for bit; the sine also at a 3000-frame (30 s)
+   bucket.
 4. decode: a full-width generator (conf/fastsvc.yaml widths, random
    weights from a seed) converts 8 utterances of 4 s through `synthesize`
    at f32 and bf16; the kernel launch counts of that run are read, the
@@ -22,7 +25,11 @@ Phases, each printed on one line with its elapsed seconds:
 5. timings: decode audio-s/s, and per kernel its time, its plain version's
    time, one PyTorch library call for the same function where there is
    one, and its bound (bytes over 3.35 TB/s or operations over the dtype's
-   peak, the larger).
+   peak, the larger); for the window-conv rows (#2-#5) also the variant
+   that ran (mma, ffma, stream) and the device time of the kernel and of
+   the library call (`queued_ms`: 20 calls queued behind a spin kernel,
+   CUDA events), since event times of 20 calls as the host issues them
+   floor at the host's cost of a call.
 6. profile: under `torch.profiler`, the device time of each kernel of one
    decode batch (f32, bf16) and the device's busy share of the batch's
    wall time; the sine kernels' device time at 400 and 3000 frames.
@@ -263,6 +270,56 @@ def device_ms(fn, n=3):
         if dev_us > 0 and e.cpu_time_total == 0:
             out[e.key] = out.get(e.key, 0.0) + dev_us / 1e3 / n
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def queued_ms(fn, iters=20, spin_cycles=50_000_000):
+    """Device ms per call of the kernels `fn` launches, back to back: the
+    calls are enqueued behind a spin kernel that holds the stream until the
+    host has enqueued them all, and CUDA events time them. Unlike
+    `cuda_ms` this leaves out the host's cost of a call; unlike
+    `device_ms` it does not rely on torch.profiler, whose kernel records
+    from small sessions went missing in this long process once the large
+    profiles of phases 6 and 9 had run (rows read 0). Raises if the host
+    took longer to enqueue than the spin lasted."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    spin0, start, end = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    spin0.record()
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_ms = (time.perf_counter() - t) * 1e3
+    end.record()
+    end.synchronize()
+    spin_ms = spin0.elapsed_time(start)
+    require(enqueue_ms < spin_ms, f"enqueue {enqueue_ms:.2f} ms outlasted "
+                                  f"the {spin_ms:.2f} ms spin")
+    return start.elapsed_time(end) / iters
+
+
+def sass_hmma_counts(lib_path, nvcc_path):
+    """HMMA instructions per window-conv and wgrad kernel instance in the
+    built library, from cuobjdump -sass; None where the toolkit has no
+    cuobjdump."""
+    tool = os.path.join(os.path.dirname(nvcc_path), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+            fn = name if ("window_conv_" in name or "wgrad_" in name) else None
+            if fn is not None:
+                counts[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            counts[fn] += 1
+    return counts
 
 
 def random_f0(gen, dev, tf):
@@ -1032,6 +1089,7 @@ def fused_conv_phases(dev, phases, items, gens, sg, inputs, rng_states,
     )
     from svcc23_fastsvc_tpu_torch.ops.sine import sine_excitation
     from svcc23_fastsvc_tpu_torch.ops.window_conv import (
+        fwd_plan,
         window_conv,
         window_conv_dx,
         window_conv_wgrad,
@@ -1121,11 +1179,18 @@ def fused_conv_phases(dev, phases, items, gens, sg, inputs, rng_states,
                                  else "window_conv_dx + window_conv_wgrad"),
                 })
                 k = rows[-1]
+                if name == "fused_conv1d":  # #2's template
+                    k.update(variant=fwd_plan(dtype, nb, T, cin, cout)["variant"],
+                             device_ms=queued_ms(fn),
+                             library_device_ms=queued_ms(lib))
                 say(f"{k['name']}: max err {err:.3e}; {k['ms']:.4f} ms (plain "
                     f"{k['plain_ms']:.4f}, library {k['library_ms']:.4f}, "
                     f"the window-conv launches it displaces "
                     f"{k['replaced_ms']:.4f}, bound {k['bound_ms']:.4f} by "
-                    f"{k['bound_by']})")
+                    f"{k['bound_by']})" + (
+                        f"; {k['variant']}, device {k['device_ms']:.4f} ms, "
+                        f"library device {k['library_device_ms']:.4f} ms"
+                        if "variant" in k else ""))
             del x, g, w, b, got, want, again, xt, gt
     phases["fused_kernels_s"] = time.perf_counter() - t
 
@@ -1390,6 +1455,8 @@ def main():
         sine_excitation_plain,
     )
     from svcc23_fastsvc_tpu_torch.ops.window_conv import (
+        fwd_plan,
+        wgrad_plan,
         window_conv,
         window_conv_dx,
         window_conv_dx_plain,
@@ -1410,6 +1477,18 @@ def main():
         f"{os.path.relpath(_build.library_path(), ROOT)}")
     for ln in ptxas:
         say(f"  ptxas {ln}")
+    # the mma variants must run on the tensor cores: HMMA in their SASS
+    hmma = sass_hmma_counts(_build.library_path(), _build._nvcc())
+    if hmma is None:
+        say("SASS HMMA check: not checked (no cuobjdump in the toolkit)")
+    else:
+        mma = {k: n for k, n in hmma.items() if "_mma_kernel" in k}
+        for k, n in hmma.items():
+            say(f"  SASS HMMA {n:4d}  {k[:120]}")
+        require(len(mma) >= 10 and all(n > 0 for n in mma.values()),
+                f"mma instances without HMMA, or missing: {mma}")
+        say(f"SASS HMMA check: {len(mma)} mma instances, all with HMMA "
+            f"({min(mma.values())}-{max(mma.values())} each)")
 
     # 3. kernels against their plain versions
     t = time.perf_counter()
@@ -1457,6 +1536,9 @@ def main():
                         f"window_conv {part} {what} {dtype}: max err {err} "
                         f"> {TOL_CONV[dtype]} x {scale}")
                 errs[part] = (err, scale)
+            dw2, db2 = window_conv_wgrad(x, g, 3, dil, slope)
+            require(torch.equal(dw, dw2) and torch.equal(db, db2),
+                    f"window_conv_wgrad {what} {dtype}: two calls differ")
             grad_cases.append((dtype, what, T, cin, cout, dil, slope, x, g, w,
                                errs))
             say(f"window_conv dx/wgrad {str(dtype)[6:]} {what} "
@@ -1537,6 +1619,13 @@ def main():
         xt = (torch.nn.functional.leaky_relu(x, slope) if slope else x)
         xt = xt.transpose(1, 2).contiguous()
         wt = w.permute(2, 1, 0).contiguous()
+
+        def kern():
+            window_conv(x, w, b, dil, slope)
+
+        def lib():
+            torch.nn.functional.conv1d(xt, wt, b, padding=dil, dilation=dil)
+
         kernels.append({
             "name": f"window_conv {str(dtype)[6:]} {what} ({B},{T},{cin})"
                     f"->{cout} d={dil}",
@@ -1545,12 +1634,14 @@ def main():
             "replaces": "svcc23_fastsvc_tpu/ops/pallas_window_conv.py:155",
             "launches": launches["window_conv"],
             "max_abs_err": err,
-            "ms": cuda_ms(lambda: window_conv(x, w, b, dil, slope)),
+            "ms": cuda_ms(kern),
             "plain_ms": cuda_ms(lambda: window_conv_plain(x, w, b, dil, slope)),
             "bound_ms": b_ms,
             "bound_by": b_by,
-            "library_ms": cuda_ms(lambda: torch.nn.functional.conv1d(
-                xt, wt, b, padding=dil, dilation=dil)),
+            "library_ms": cuda_ms(lib),
+            "variant": fwd_plan(dtype, B, T, cin, cout)["variant"],
+            "device_ms": queued_ms(kern),
+            "library_device_ms": queued_ms(lib),
         })
     nbytes = f0.numel() * 4 + B * TF * HOP * 4
     s_ms, s_by = bound(nbytes, 10 * B * TF * HOP, torch.float32)
@@ -1571,7 +1662,10 @@ def main():
     for k in kernels:
         say(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} by "
-            f"{k['bound_by']})")
+            f"{k['bound_by']})" + (
+                f"; {k['variant']}, device {k['device_ms']:.4f} ms, library "
+                f"device {k['library_device_ms']:.4f} ms"
+                if "variant" in k else ""))
     phases["timings_s"] = time.perf_counter() - t
 
     # 6. profile: device time by kernel, and the device's busy share
@@ -1662,20 +1756,22 @@ def main():
         dx_bytes = ((x.numel() + g.numel() + w.numel()) * esize
                     + (x.numel() * esize if slope is not None else 0))
         wg_bytes = (x.numel() + g.numel()) * esize + (w.numel() + cout) * 4
-        for kernel, nbytes, err, fn, plain, lib, src, line in (
+        for kernel, nbytes, err, fn, plain, lib, src, line, variant in (
             ("window_conv_dx", dx_bytes, errs["dx"][0],
              lambda: window_conv_dx(g, w, dil, x, slope),
              lambda: window_conv_dx_plain(g, w, dil, x, slope),
              lambda: tgrad.conv1d_input(xt.shape, wt, gt, padding=dil,
                                           dilation=dil),
-             "window_conv_grad.cu", 252),
+             "window_conv_grad.cu", 252,
+             fwd_plan(dtype, TB, T, cout, cin)["variant"]),
             ("window_conv_wgrad", wg_bytes,
              max(errs["dw"][0], errs["db"][0]),
              lambda: window_conv_wgrad(x, g, 3, dil, slope),
              lambda: window_conv_wgrad_plain(x, g, 3, dil, slope),
              lambda: tgrad.conv1d_weight(xt, wt.shape, gt, padding=dil,
                                            dilation=dil),
-             "window_conv_grad.cu", 203),
+             "window_conv_grad.cu", 203,
+             wgrad_plan(dtype, TB, T, 3, cin, cout)["variant"]),
         ):
             b_ms, b_by = bound(nbytes, ops, dtype)
             kernels.append({
@@ -1691,11 +1787,16 @@ def main():
                 "bound_ms": b_ms,
                 "bound_by": b_by,
                 "library_ms": cuda_ms(lib),
+                "variant": variant,
+                "device_ms": queued_ms(fn),
+                "library_device_ms": queued_ms(lib),
             })
             k = kernels[-1]
             say(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
                 f"library {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} "
-                f"by {k['bound_by']})")
+                f"by {k['bound_by']}); {variant}, device "
+                f"{k['device_ms']:.4f} ms, library device "
+                f"{k['library_device_ms']:.4f} ms")
     phases["grad_timings_s"] = time.perf_counter() - t
 
     # 11-14. the B02 vocoder, with cuDNN at its defaults as in synthesize_b02

@@ -17,8 +17,8 @@
 // (_fwd_kernel). It is the window-conv kernel of window_conv.cuh with its
 // window started at t0 - lo: the TPU kernel assembles the same
 // (left halo | tile | right halo) window in VMEM and takes each tap as an
-// offset into it. What bounds it on the H100 and how it is tiled are said
-// in window_conv.cuh.
+// offset into it. What bounds it on the H100 and its two variants (bf16
+// mma.sync on the tensor cores, f32 FFMA) are said in window_conv.cuh.
 //
 // fused_conv_bwd_* replaces _bwd_call (_bwd_kernel), which reads x and g
 // once and accumulates dw and db in f32 VMEM blocks revisited across the
@@ -261,26 +261,30 @@ int fused_bwd(const void* x, const void* g, const void* w, void* dx,
 
 // x (B, T, Cin) and y (B, T, Cout) contiguous; w (K, Cin, Cout) addressed by
 // the element strides swk, swi, swo; bias (Cout,) or null; slope already
-// rounded to the stream type.
+// rounded to the stream type. variant, tm and tn are the caller's plan
+// (ops/window_conv.py::fwd_plan), as for the window conv.
 extern "C" int fused_conv_fwd_f32(const void* x, const void* w, const void* b,
-                                  void* y, int B, int T_len, int Cin, int Cout,
+                                  void* y, void* wpack, int B, int T_len, int Cin, int Cout,
                                   int K, int dil, int lo, long long swk,
                                   long long swi, long long swo, int has_leaky,
-                                  float slope, void* stream) {
-  return dispatch_window_conv<float, 2>(x, w, b, nullptr, y, B, T_len, Cin,
-                                        Cout, K, dil, lo, swk, swi, swo,
-                                        has_leaky, slope, 0.f, stream);
+                                  float slope, int variant, int tm, int tn,
+                                  void* stream) {
+  const ConvArgs a{x, w, b, nullptr, y, wpack, B, T_len, Cin, Cout, K, dil, lo,
+                   swk, swi, swo, has_leaky, slope, 0.f,
+                   static_cast<cudaStream_t>(stream)};
+  return dispatch_window_conv<float, 2>(a, variant, tm, tn);
 }
 
 extern "C" int fused_conv_fwd_bf16(const void* x, const void* w,
-                                   const void* b, void* y, int B, int T_len,
+                                   const void* b, void* y, void* wpack, int B, int T_len,
                                    int Cin, int Cout, int K, int dil, int lo,
                                    long long swk, long long swi, long long swo,
-                                   int has_leaky, float slope, void* stream) {
-  return dispatch_window_conv<__nv_bfloat16, 2>(x, w, b, nullptr, y, B, T_len,
-                                                Cin, Cout, K, dil, lo, swk,
-                                                swi, swo, has_leaky, slope,
-                                                0.f, stream);
+                                   int has_leaky, float slope, int variant,
+                                   int tm, int tn, void* stream) {
+  const ConvArgs a{x, w, b, nullptr, y, wpack, B, T_len, Cin, Cout, K, dil, lo,
+                   swk, swi, swo, has_leaky, slope, 0.f,
+                   static_cast<cudaStream_t>(stream)};
+  return dispatch_window_conv<bf16, 2>(a, variant, tm, tn);
 }
 
 // x (B, T, Cin) the forward's pre-activation input and g (B, T, Cout), both

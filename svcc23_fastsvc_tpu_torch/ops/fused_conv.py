@@ -36,11 +36,19 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .window_conv import (
+    FWD_VARIANTS,
+    _aligned16,
+    _ptr,
+    fwd_plan,
+    pack_scratch,
+)
 
 HALO = 64  # the largest reach (K-1)*dilation, as in the JAX kernel
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-    ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_float] + [
+    ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
     ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
                               ctypes.c_int, ctypes.c_void_p]
@@ -169,14 +177,17 @@ def fused_conv1d(x, weight, bias=None, lo: int = 1, hi: int = 1,
     y = torch.empty((B, T, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    plan = fwd_plan(x.dtype, B, T, cin, cout)  # #2's template and plan
+    _aligned16("fused_conv1d", x)
     name = f"fused_conv_fwd_{_SUFFIX[x.dtype]}"
     fn = _build.kernel(name, _FWD_ARGTYPES)
     swk, swi, swo = weight.stride()
-    err = fn(x.data_ptr(), weight.data_ptr(),
-             None if bias is None else bias.data_ptr(), y.data_ptr(),
-             B, T, cin, cout, K, dilation, lo, swk, swi, swo,
+    wpack = pack_scratch(plan, K, cin, cout, x.device)
+    err = fn(x.data_ptr(), weight.data_ptr(), _ptr(bias), y.data_ptr(),
+             _ptr(wpack), B, T, cin, cout, K, dilation, lo, swk, swi, swo,
              0 if slope is None else 1,
              0.0 if slope is None else stream_slope(slope, x.dtype),
+             FWD_VARIANTS[plan["variant"]], plan["tm"], plan["tn"],
              _build.stream_handle(x.device))
     _build.check(err, name)
     fused_conv1d.launches += 1

@@ -41,6 +41,8 @@ from svcc23_fastsvc_tpu_torch.ops.sine import (
 )
 from svcc23_fastsvc_tpu_torch.ops.window_conv import (
     WindowConv1d,
+    fwd_plan,
+    wgrad_plan,
     window_conv,
     window_conv_dx,
     window_conv_dx_plain,
@@ -183,6 +185,104 @@ def test_window_conv_function_on_the_card_matches_the_cpu(cuda):
     for got, want in zip(outs[1], outs[0]):
         err = (got - want).abs().max().item()
         assert err <= 2e-4 * want.abs().max().item()
+
+
+# B, T, Cin, Cout, K, dilation, slope, bias: the edges of the forward's and
+# wgrad's variants (mma for bf16 at Cin a multiple of 8 and >= 16, ffma,
+# stream at Cin = 1): T a multiple of no row tile, Cin 16 / 24 / 40 (MMA
+# depth 16 / 32 padded / 32 + 8), d27 with T below its 54-row halo, K = 5,
+# no bias, the 384-channel FiLM width, Cout 1; the last two grids large
+# enough for the ffma tiles of 8 rows a thread (the others take 4)
+VARIANT_CASES = [
+    (2, 300, 16, 24, 3, 1, 0.2, True),
+    (2, 300, 24, 24, 3, 27, 0.2, False),
+    (1, 517, 40, 48, 3, 9, None, True),
+    (2, 40, 24, 24, 3, 27, 0.2, True),
+    (1, 200, 48, 40, 5, 3, 0.2, True),
+    (2, 100, 384, 384, 3, 1, None, False),
+    (1, 333, 1, 24, 3, 1, 0.2, True),
+    (2, 129, 24, 1, 3, 9, 0.2, True),
+    (8, 4100, 24, 40, 3, 9, 0.2, True),
+    (4, 9000, 16, 24, 3, 27, None, True),
+]
+
+
+def _close(got, want, tol):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,Cin,Cout,K,dil,slope,bias", VARIANT_CASES)
+def test_window_conv_variants_match_plain(cuda, dtype, tol, B, T, Cin, Cout,
+                                          K, dil, slope, bias):
+    x, w, b = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _conv_case(B, T, Cin, Cout, K, seed=T + Cin + K))
+    g = torch.from_numpy(np.random.default_rng(T + 5).standard_normal(
+        (B, T, Cout))).to(cuda, dtype)
+    b = b if bias else None
+    mma = lambda cin: dtype == torch.bfloat16 and cin % 8 == 0 and cin >= 16
+    assert fwd_plan(dtype, B, T, Cin, Cout)["variant"] == (
+        "mma" if mma(Cin) else "ffma")
+    assert fwd_plan(dtype, B, T, Cout, Cin)["variant"] == (
+        "mma" if mma(Cout) else "ffma")  # dx, its mask epilogue included
+    assert wgrad_plan(dtype, B, T, K, Cin, Cout)["variant"] == (
+        "stream" if Cin == 1 else
+        "mma" if mma(Cin) and Cout % 8 == 0 else "ffma")
+    _close(window_conv(x, w, b, dil, slope),
+           window_conv_plain(x, w, b, dil, slope), tol)
+    _close(window_conv_dx(g, w, dil, x, slope),
+           window_conv_dx_plain(g, w, dil, x, slope), tol)
+    dw, db = window_conv_wgrad(x, g, K, dil, slope)
+    want_w, want_b = window_conv_wgrad_plain(x, g, K, dil, slope)
+    _close(dw, want_w, tol)
+    _close(db, want_b, tol)
+    # a fixed partition and no atomics, in every variant: the same bits
+    dw2, db2 = window_conv_wgrad(x, g, K, dil, slope)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_window_conv_variants_take_the_strided_weight_view(cuda, dtype, tol):
+    # the generator's torch-layout weight (Cout, Cin, K) seen as (K, Cin,
+    # Cout), through the forward and through dx's negative K stride
+    x, w, b = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _conv_case(2, 300, 48, 24, 3, seed=9))
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (2, 300, 24))).to(cuda, dtype)
+    view = w.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+    assert not view.is_contiguous()
+    _close(window_conv(x, view, b, 9, 0.2),
+           window_conv_plain(x, w, b, 9, 0.2), tol)
+    _close(window_conv_dx(g, view, 9, x, 0.2),
+           window_conv_dx_plain(g, w, 9, x, 0.2), tol)
+
+
+# B, T, Cin, Cout, K, dilation, lo: the fused conv's forward (#5, on #2's
+# template) with its window started at t0 - lo, lo != hi
+FUSED_LO_CASES = [
+    (2, 300, 24, 24, 3, 9, 5),
+    (1, 260, 48, 48, 5, 3, 0),
+    (2, 257, 1, 24, 3, 1, 2),
+    (1, 300, 40, 16, 3, 27, 50),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,Cin,Cout,K,dil,lo", FUSED_LO_CASES)
+def test_fused_conv_forward_with_lo_not_hi_matches_plain(cuda, dtype, tol, B,
+                                                         T, Cin, Cout, K,
+                                                         dil, lo):
+    hi = (K - 1) * dil - lo
+    x, w, b = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _conv_case(B, T, Cin, Cout, K, seed=lo + T))
+    _close(fused_conv1d(x, w, b, lo, hi, dil, 0.2),
+           fused_conv1d_plain(x, w, b, lo, hi, dil, 0.2), tol)
 
 
 # Tf > 1024 gives each thread of the prefix scan a run of several frames
