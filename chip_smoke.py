@@ -10,7 +10,9 @@ Phases, each printed on one line with its elapsed seconds:
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile `svcc23_fastsvc_tpu_torch/csrc/*.cu` with nvcc (sm_90a);
    where the toolkit has cuobjdump, count the HMMA instructions of every
-   window-conv and wgrad instance and require some in each mma variant.
+   window-conv, wgrad, fused-conv backward and gated-block instance and
+   require some in each mma variant (the window convs', #6's and the
+   blocks').
 3. kernels: each kernel against its plain PyTorch version, in f32 (TF32
    off) and bf16: the forward at the decode shapes of a 400-frame batch of
    8, dx and wgrad at the training shapes of the recipe's batch (32 x 16000
@@ -57,12 +59,14 @@ Phases, each printed on one line with its elapsed seconds:
 10. the backward kernels' times at the training shapes.
 11. vocoder kernels: the adaptive (dilations 1, 8) and fixed (1, 512) block
    kernels against their plain versions at the vocoder's full widths on
-   8 x 24000 samples, f32 and bf16, with their times.
+   8 x 24000 samples, f32 and bf16, with their times: the variant that ran
+   (mma, ffma), the event time and the device time (`queued_ms`).
 12. vocoder: the B02 HN-uSFGAN generator at full width (20 adaptive, 5 noise
    and 30 filter blocks, random weights from a seed, weight norm folded)
    vocodes 8 utterances of 1 s through `bin/synthesize_b02.py::vocode` in
    f32 and bf16: exactly 20 adaptive and 35 fixed kernel launches per
-   forward, finite output, utterances 0 and 7 held against the same module
+   forward (and as many weight packs, reported beside them), finite
+   output, utterances 0 and 7 held against the same module
    on the CPU (plain versions; bf16 within twice the CPU's own bf16-vs-f32
    distance), audio-s/s by CUDA events and the busy share.
 13. vocoder chain kernel: `pd_fixed_chain` against its plain version on the
@@ -90,8 +94,10 @@ Phases, each printed on one line with its elapsed seconds:
    max |ref|) at the generator's training shapes (batch 32 x 16000, T >=
    256), two decode shapes and Tacotron2's bap conv1, f32 and bf16; two
    backward calls bit for bit; their times, the plain versions', the
-   library's (F.conv1d; conv1d_input + conv1d_weight + a sum, three calls)
-   and the window-conv launches they displace (#2; #3 + #4).
+   library's (F.conv1d; one torch.ops.aten.convolution_backward call for
+   dx, dw and db) and the window-conv launches they displace (#2; #3 + #4);
+   for both the variant that ran and the device times (`queued_ms`) of the
+   kernel, the library call and the launches displaced.
 18. FastSVC training with FASTSVC_PALLAS_CONV=1, after the "auto" probe
    passed on the card: phase 7 (against CPU f64,
    two steps bit for bit) and phase 8 (`Trainer.run`, rates, launches per
@@ -302,9 +308,9 @@ def queued_ms(fn, iters=20, spin_cycles=50_000_000):
 
 
 def sass_hmma_counts(lib_path, nvcc_path):
-    """HMMA instructions per window-conv and wgrad kernel instance in the
-    built library, from cuobjdump -sass; None where the toolkit has no
-    cuobjdump."""
+    """HMMA instructions per conv (window conv, wgrad, fused-conv backward)
+    and gated-block kernel instance in the built library, from cuobjdump
+    -sass; None where the toolkit has no cuobjdump."""
     tool = os.path.join(os.path.dirname(nvcc_path), "cuobjdump")
     if not os.path.isfile(tool):
         return None
@@ -314,7 +320,9 @@ def sass_hmma_counts(lib_path, nvcc_path):
     for ln in out.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :", 1)[1].strip()
-            fn = name if ("window_conv_" in name or "wgrad_" in name) else None
+            fn = name if any(k in name for k in (
+                "window_conv_", "wgrad_", "fused_bwd_", "pd_block_",
+                "pd_chain_")) else None
             if fn is not None:
                 counts[fn] = 0
         elif fn is not None and "HMMA" in ln:
@@ -618,6 +626,7 @@ def vocoder_phases(dev, phases):
     from svcc23_fastsvc_tpu_torch.dsp.f0 import dilated_factor
     from svcc23_fastsvc_tpu_torch.models.hnusfgan import PD_HALO_FS
     from svcc23_fastsvc_tpu_torch.ops.pd_block import (
+        block_plan,
         frame_shifts,
         pd_adaptive_block,
         pd_adaptive_block_plain,
@@ -689,7 +698,7 @@ def vocoder_phases(dev, phases):
                 "route": "cuda",
                 "source": "svcc23_fastsvc_tpu_torch/csrc/pd_block.cu",
                 "replaces": "svcc23_fastsvc_tpu/ops/pallas_pd_block.py:"
-                            + ("506" if kind == "adaptive" else "222"),
+                            + ("547" if kind == "adaptive" else "285"),
                 "max_abs_err": err,
                 "ms": cuda_ms(lambda: fn(*args, **kw)),
                 "plain_ms": cuda_ms(lambda: plain(*args, **kw), iters=5,
@@ -697,11 +706,14 @@ def vocoder_phases(dev, phases):
                 "bound_ms": b_ms,
                 "bound_by": b_by,
                 "library_ms": None,
+                "variant": block_plan(dtype, VB, T, 64, 62, 128)["variant"],
+                "device_ms": queued_ms(lambda: fn(*args, **kw)),
             })
             k = rows[-1]
             say(f"{k['name']}: max err {err:.3e} (scale {scale:.3e}); "
                 f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library none, "
-                f"bound {k['bound_ms']:.4f} by {k['bound_by']})")
+                f"bound {k['bound_ms']:.4f} by {k['bound_by']}); "
+                f"{k['variant']}, device {k['device_ms']:.4f} ms")
         del x, c
     phases["vocoder_kernels_s"] = time.perf_counter() - t
 
@@ -849,6 +861,7 @@ def vocoder_phases(dev, phases):
                 "bound_by": b_by,
                 "library_ms": None,
                 "replaced_ms": cuda_ms(blocks),
+                "variant": block_plan(dtype, VB, T, 64, 62, 128)["variant"],
                 "equals_the_block_kernels": same,
             })
             k = chain_cases[-1]
@@ -868,7 +881,8 @@ def vocoder_phases(dev, phases):
     try:
         ys_c, states_c, chain_launches = drive(
             (pd_adaptive_block, pd_fixed_chain, pd_fixed_block,
-             sine_excitation), [20, 4, 15, 1], "vocoder with chains")
+             sine_excitation), [20, 4, 15, 1],
+            "vocoder with chains")
         say(f"vocoder with chains, main path: launches {chain_launches}")
         vs_off = {}
         for dtype, y in ys_c.items():
@@ -1082,6 +1096,7 @@ def fused_conv_phases(dev, phases, items, gens, sg, inputs, rng_states,
         set_pallas_conv_mode,
     )
     from svcc23_fastsvc_tpu_torch.ops.fused_conv import (
+        bwd_plan,
         fused_conv1d,
         fused_conv1d_bwd,
         fused_conv1d_bwd_plain,
@@ -1096,7 +1111,6 @@ def fused_conv_phases(dev, phases, items, gens, sg, inputs, rng_states,
     )
 
     F = torch.nn.functional
-    tgrad = torch.nn.grad
 
     # 17. the kernels on their own, f32 and bf16
     t = time.perf_counter()
@@ -1151,11 +1165,10 @@ def fused_conv_phases(dev, phases, items, gens, sg, inputs, rng_states,
                  lambda: fused_conv1d_bwd(x, g, w, dil, dil, dil, slope),
                  lambda: fused_conv1d_bwd_plain(x, g, w, dil, dil, dil,
                                                 slope),
-                 lambda: (tgrad.conv1d_input(xt.shape, wt, gt, padding=dil,
-                                             dilation=dil),
-                          tgrad.conv1d_weight(xt, wt.shape, gt, padding=dil,
-                                              dilation=dil),
-                          gt.sum((0, 2))),
+                 # dx, dw and db in one library call
+                 lambda: torch.ops.aten.convolution_backward(
+                     gt, xt, wt, [cout], [1], [dil], [dil], False, [0], 1,
+                     [True, True, True]),
                  lambda: (window_conv_dx(g, w, dil, x, slope),
                           window_conv_wgrad(x, g, 3, dil, slope)), 240),
             ):
@@ -1172,25 +1185,29 @@ def fused_conv_phases(dev, phases, items, gens, sg, inputs, rng_states,
                     "bound_by": b_by,
                     "library_ms": cuda_ms(lib),
                     "library": ("F.conv1d" if name == "fused_conv1d" else
-                                "conv1d_input + conv1d_weight + sum: three "
-                                "calls"),
+                                "torch.ops.aten.convolution_backward, one "
+                                "call"),
                     "replaced_ms": cuda_ms(repl),
                     "replaced": ("window_conv" if name == "fused_conv1d"
                                  else "window_conv_dx + window_conv_wgrad"),
                 })
                 k = rows[-1]
-                if name == "fused_conv1d":  # #2's template
-                    k.update(variant=fwd_plan(dtype, nb, T, cin, cout)["variant"],
-                             device_ms=queued_ms(fn),
-                             library_device_ms=queued_ms(lib))
+                plan = (fwd_plan(dtype, nb, T, cin, cout)  # #2's template
+                        if name == "fused_conv1d"
+                        else bwd_plan(dtype, nb, T, 3, cin, cout))
+                k.update(variant=plan["variant"],
+                         rows=plan.get("rows", plan.get("tm")),
+                         device_ms=queued_ms(fn),
+                         library_device_ms=queued_ms(lib),
+                         replaced_device_ms=queued_ms(repl))
                 say(f"{k['name']}: max err {err:.3e}; {k['ms']:.4f} ms (plain "
                     f"{k['plain_ms']:.4f}, library {k['library_ms']:.4f}, "
                     f"the window-conv launches it displaces "
                     f"{k['replaced_ms']:.4f}, bound {k['bound_ms']:.4f} by "
-                    f"{k['bound_by']})" + (
-                        f"; {k['variant']}, device {k['device_ms']:.4f} ms, "
-                        f"library device {k['library_device_ms']:.4f} ms"
-                        if "variant" in k else ""))
+                    f"{k['bound_by']}); {k['variant']} ({k['rows']} rows), "
+                    f"device {k['device_ms']:.4f} ms, library device "
+                    f"{k['library_device_ms']:.4f} ms, displaced device "
+                    f"{k['replaced_device_ms']:.4f} ms")
             del x, g, w, b, got, want, again, xt, gt
     phases["fused_kernels_s"] = time.perf_counter() - t
 
@@ -1485,10 +1502,14 @@ def main():
         mma = {k: n for k, n in hmma.items() if "_mma_kernel" in k}
         for k, n in hmma.items():
             say(f"  SASS HMMA {n:4d}  {k[:120]}")
-        require(len(mma) >= 10 and all(n > 0 for n in mma.values()),
-                f"mma instances without HMMA, or missing: {mma}")
+        family = {f: [n for k, n in mma.items() if f in k] for f in (
+            "window_conv_mma", "wgrad_mma", "fused_bwd_mma", "pd_block_mma",
+            "pd_chain_mma")}
+        require(all(family.values()) and all(n > 0 for n in mma.values()),
+                f"mma instances without HMMA, or missing: {family}")
         say(f"SASS HMMA check: {len(mma)} mma instances, all with HMMA "
-            f"({min(mma.values())}-{max(mma.values())} each)")
+            f"({min(mma.values())}-{max(mma.values())} each): " + ", ".join(
+                f"{f} {len(v)}" for f, v in family.items()))
 
     # 3. kernels against their plain versions
     t = time.perf_counter()

@@ -54,21 +54,10 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "device_prims.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16(v);
-}
 // the activated input is rounded to the storage type, as the TPU kernel
 // stores it back into its window scratch
 __device__ __forceinline__ float round_to(float v, float) { return v; }
@@ -77,56 +66,6 @@ __device__ __forceinline__ float round_to(float v, bf16) {
 }
 __device__ __forceinline__ float leaky(float v, float slope) {
   return v >= 0.f ? v : v * slope;
-}
-
-// ---- asynchronous copies, ldmatrix and mma.sync -------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 (or 4) bytes global -> shared; ok == false writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)) : "memory");
-}
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- staging rows of a channels-last matrix into shared memory ----------
@@ -520,6 +459,61 @@ window_conv_ffma_kernel(const T* __restrict__ x, const T* __restrict__ w,
       y[at] = from_f32<T>(v);
     }
   }
+}
+
+// ---- slots of a weight gradient, and their ordered reduce ---------------
+
+// the fixed partition: slot s takes units [n*s/S, n*(s+1)/S)
+__device__ __forceinline__ long long part_begin(long long n, int s, int S) {
+  return n * s / S;
+}
+
+// shared rows of an odd number of 16-byte units hold at least `cols` bf16
+__host__ __device__ constexpr int odd_ld(int cols) {
+  return 8 * ((cols / 8 + 1) | 1);
+}
+
+// The ordered reduce of a weight gradient's slots (#4, #6): a block of
+// 32 x J threads sums 32 elements of [dw | db]: thread
+// (e, j) adds slots j, j + J, j + 2J, ... in order, then thread (e, 0) adds
+// the J partial sums in j order. J = clamp(n_slots / 8, 1, 32) depends on
+// the slot count alone, so the order is fixed and two runs give the same
+// bits; the J loads in flight per element replace one thread walking all
+// the slots alone.
+constexpr int kRedMaxJ = 32;
+__global__ void __launch_bounds__(32 * kRedMaxJ)
+slot_reduce_kernel(const float* __restrict__ part_w,
+                   const float* __restrict__ part_b, float* __restrict__ dw,
+                   float* __restrict__ db, long long n_w, int Cout,
+                   int n_slots) {
+  __shared__ float sums[kRedMaxJ][33];
+  const long long i = (long long)blockIdx.x * 32 + threadIdx.x;
+  const int j = threadIdx.y, J = blockDim.y;
+  float s = 0.f;
+  if (i < n_w) {
+    for (int sp = j; sp < n_slots; sp += J) s += part_w[sp * n_w + i];
+  } else if (i < n_w + Cout) {
+    const int o = (int)(i - n_w);
+    for (int sp = j; sp < n_slots; sp += J) s += part_b[(long long)sp * Cout + o];
+  }
+  sums[j][threadIdx.x] = s;
+  __syncthreads();
+  if (j != 0 || i >= n_w + Cout) return;
+  float t = 0.f;
+  for (int jj = 0; jj < J; ++jj) t += sums[jj][threadIdx.x];
+  if (i < n_w) dw[i] = t;
+  else db[i - n_w] = t;
+}
+
+inline int launch_slot_reduce(const float* part_w, const float* part_b,
+                              float* dw, float* db, long long n_w, int Cout,
+                              int n_slots, cudaStream_t stream) {
+  const long long n = n_w + Cout;
+  const int J = n_slots / 8 < 1 ? 1 : n_slots / 8 > kRedMaxJ ? kRedMaxJ
+                                                           : n_slots / 8;
+  slot_reduce_kernel<<<(unsigned)((n + 31) / 32), dim3(32, J), 0, stream>>>(
+      part_w, part_b, dw, db, n_w, Cout, n_slots);
+  return (int)cudaGetLastError();
 }
 
 // ---- launches ----------------------------------------------------------

@@ -39,8 +39,9 @@
 //   - stream (Cin = 1): 256 threads walk the rows with 16-byte loads of g,
 //     K x 8 (bf16) or K x 4 (f32) accumulators each, then a block reduction
 //     in thread order. No padded input tile.
-// * Reduce pass: the slots summed in a fixed order, up to 32 slot groups
-//   to an element, then the groups in order.
+// * Reduce pass (window_conv.cuh's slot_reduce_kernel, which the fused
+//   conv's backward shares): the slots summed in a fixed order, up to 32
+//   slot groups to an element, then the groups in order.
 // No atomics, so dw and db are the same from run to run. db comes from the
 // staged g tiles of the first input slab. The activated input is rounded to
 // the storage type before the product, as the TPU kernel stores it back into
@@ -58,16 +59,6 @@ constexpr int kStreamKMax = 7;  // stream: most taps
 
 // the variant ids the callers pass (ops/window_conv.py::WGRAD_VARIANTS)
 enum { kWgMma = 0, kWgFfma = 1, kWgStream = 2 };
-
-// the fixed partition: slot s takes units [n*s/S, n*(s+1)/S)
-__device__ __forceinline__ long long part_begin(long long n, int s, int S) {
-  return n * s / S;
-}
-
-// shared rows of an odd number of 16-byte units hold at least `cols` bf16
-__host__ __device__ constexpr int odd_ld(int cols) {
-  return 8 * ((cols / 8 + 1) | 1);
-}
 
 template <int NTB, int PPW>
 __global__ void __launch_bounds__(kWgThreads, NTB * PPW <= 12 ? 3 : 2)
@@ -442,37 +433,6 @@ wgrad_stream_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// pass 2: a block of 32 x J threads sums 32 elements of [dw | db]: thread
-// (e, j) adds slots j, j + J, j + 2J, ... in order, then thread (e, 0) adds
-// the J partial sums in j order. J = clamp(n_slots / 8, 1, 32) depends on
-// the slot count alone, so the order is fixed and two runs give the same
-// bits; the J loads in flight per element replace one thread walking all
-// the slots alone.
-constexpr int kRedMaxJ = 32;
-__global__ void __launch_bounds__(32 * kRedMaxJ)
-wgrad_reduce_kernel(const float* __restrict__ part_w,
-                    const float* __restrict__ part_b, float* __restrict__ dw,
-                    float* __restrict__ db, long long n_w, int Cout,
-                    int n_slots) {
-  __shared__ float sums[kRedMaxJ][33];
-  const long long i = (long long)blockIdx.x * 32 + threadIdx.x;
-  const int j = threadIdx.y, J = blockDim.y;
-  float s = 0.f;
-  if (i < n_w) {
-    for (int sp = j; sp < n_slots; sp += J) s += part_w[sp * n_w + i];
-  } else if (i < n_w + Cout) {
-    const int o = (int)(i - n_w);
-    for (int sp = j; sp < n_slots; sp += J) s += part_b[(long long)sp * Cout + o];
-  }
-  sums[j][threadIdx.x] = s;
-  __syncthreads();
-  if (j != 0 || i >= n_w + Cout) return;
-  float t = 0.f;
-  for (int jj = 0; jj < J; ++jj) t += sums[jj][threadIdx.x];
-  if (i < n_w) dw[i] = t;
-  else db[i - n_w] = t;
-}
-
 struct WgradArgs {
   const void* x; const void* g; float* part_w; float* part_b;
   int B, T_len, Cin, Cout, K, dil, has_leaky;
@@ -569,13 +529,9 @@ int wgrad(const WgradArgs& a, int variant, int tile_n, int ppw, float* dw,
     else if (tile_n == 16 / (int)sizeof(T)) err = launch_wgrad_stream<T, 16 / sizeof(T)>(a);
   }
   if (err != 0) return err;
-  const long long n = (long long)a.K * a.Cin * a.Cout + a.Cout;
-  const int J = a.n_slots / 8 < 1 ? 1 : a.n_slots / 8 > kRedMaxJ ? kRedMaxJ
-                                                                : a.n_slots / 8;
-  wgrad_reduce_kernel<<<(unsigned)((n + 31) / 32), dim3(32, J), 0,
-                        a.stream>>>(a.part_w, a.part_b, dw, db, n - a.Cout,
-                                    a.Cout, a.n_slots);
-  return (int)cudaGetLastError();
+  return launch_slot_reduce(a.part_w, a.part_b, dw, db,
+                            (long long)a.K * a.Cin * a.Cout, a.Cout,
+                            a.n_slots, a.stream);
 }
 
 }  // namespace

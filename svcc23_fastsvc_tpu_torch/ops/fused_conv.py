@@ -19,7 +19,9 @@ weight's dtype, db from f32 to it.
 
 The kernels replace `pallas_conv.py::_fwd_call` (#5) and `_bwd_call` (#6);
 their source is `csrc/fused_conv.cu`, whose header says what bounds them on
-the H100. `ops.conv.conv1d` routes a conv here when the mode (the
+the H100. The forward runs #2's template on `window_conv.fwd_plan`; the
+backward's variant (tensor cores, FFMA or a stream at Cin = 1), row tile,
+channel slabs and slots are `bwd_plan`'s, from dtype and shapes alone. `ops.conv.conv1d` routes a conv here when the mode (the
 `FASTSVC_PALLAS_CONV` environment variable, as in the JAX package) is on
 and `fused_conv1d_supported` holds.
 
@@ -31,6 +33,7 @@ tensor it takes its plain PyTorch version (`*_plain`), which the tests and
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -50,13 +53,31 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
     ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_float] + [
     ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-    ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                              ctypes.c_int, ctypes.c_void_p]
-_ROWS = 64  # rows of one row tile, kRows in csrc/fused_conv.cu
-# the backward sums its row tiles into at most this many slots (four blocks
-# per SM of an H100) and at most this many f32 words of slots in all (64 MB)
-_MAX_SLOTS = 4 * 132
+    ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_float] + [
+    ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+# The backward's plan (csrc/fused_conv.cu): variant ids, rows of a row tile
+# per variant, and the limits of its instances. The slots of the mma and
+# ffma variants fill an H100 at one block per SM (their shared memory), the
+# stream variant's at three; the slot scratch holds at most _MAX_SLOT_WORDS
+# f32 words (64 MB).
+BWD_VARIANTS = {"mma": 0, "ffma": 1, "stream": 2}
+# rows of a row tile: the stream variant's 256; the others' 256 where a
+# slab is at most _WIDE_SLAB channels wide (the per-tile costs are spread
+# over four times the rows), else 64
+BWD_ROWS = {"mma": (64, 256), "ffma": (64, 256), "stream": (256,)}
+_WIDE_SLAB = 32
+_BWD_BLOCKS_PER_SM = {"mma": 1, "ffma": 1, "stream": 3}
+_SMS = 132
 _MAX_SLOT_WORDS = 1 << 24
+_SMEM_BYTES = 232448       # shared memory a block may use on the H100
+_MMA_PAIRS_PER_WARP = {64: 9, 256: 3}  # the mma instances' PW
+_MMA_DW_TILES = 3          # kBwDwTiles
+_MMA_MAX_SLAB = 96         # kBwMmaMaxSlab
+_MMA_MAX_OUT = 192         # kBwMaxOut
+_FFMA_UNITS = 4 * 256      # kBwUnits x threads
+_FFMA_MAX_SLAB = 128       # kBwFfMaxSlab
+_STREAM_MAX_OUT = 64       # kStreamMaxOut
 
 
 def fused_conv1d_supported(x_shape, w_shape, *, stride, groups, lo, hi,
@@ -194,15 +215,99 @@ def fused_conv1d(x, weight, bias=None, lo: int = 1, hi: int = 1,
     return y
 
 
-def bwd_slots(B, T, K, cin, cout) -> int:
-    """How many slots (blocks) the backward sums its row tiles into: a
-    function of the shapes alone, so the sums are too. The busiest slot's
-    tile count sets the time, so the fewest slots that keep it at its
-    least under the caps."""
-    n_tiles = B * -(-T // _ROWS)
-    most = max(1, min(_MAX_SLOTS, _MAX_SLOT_WORDS // (K * cin * cout)))
-    per_slot = -(-n_tiles // most)
-    return -(-n_tiles // per_slot)
+def _odd_ld(cols: int) -> int:
+    """odd_ld in csrc/window_conv.cuh: an odd number of 16-byte bf16 units
+    holding at least `cols`."""
+    return 8 * ((cols // 8 + 1) | 1)
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _dw_groups(cout: int) -> int:
+    """dw_groups in csrc/fused_conv.cu: the mma dw's groups of three n8
+    output tiles, a power of two."""
+    wq = 1
+    while wq * _MMA_DW_TILES < cout // 8:
+        wq *= 2
+    return wq
+
+
+def bwd_smem_bytes(variant: str, rows: int, isl: int, K: int, cout: int,
+                   stages: int, span: int = HALO) -> int:
+    """Shared memory of a backward block (mma_bwd_smem, ffma_bwd_smem,
+    stream_bwd_smem in csrc/fused_conv.cu), at the largest reach unless
+    `span` says otherwise."""
+    wrows = rows + span
+    if variant == "mma":
+        gld = _odd_ld(_up(cout, 16))
+        return 2 * (stages * wrows * (_odd_ld(_up(isl, 16)) + gld)
+                    + K * isl * gld)
+    if variant == "ffma":
+        ocp = _up(cout, 8)
+        area = max(stages * wrows * (_up(isl, 4) + 4 + ocp + 4), 256 * 33)
+        return 4 * (area + K * ocp * _up(isl, 8))
+    return 4 * (2 * wrows * (cout + 2) + K * cout + 256 * (K + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(dtype, B: int, T: int, K: int, cin: int, cout: int) -> dict:
+    """The one-pass backward's variant, row tile, input-channel slabs,
+    stages and slots (cached: callers read it and never change it).
+
+    Cin = 1 streams ("stream") up to 64 output channels; bf16 with Cin and
+    Cout multiples of 8, Cin >= 16 and Cout <= 192 runs on the tensor cores
+    ("mma"); the rest on the FFMA loop ("ffma"). A block holds its slab of
+    the weight and the dw sums of that slab, so the input channels are cut
+    into slabs of `isl` only where one block cannot hold all of them: the
+    widest slab whose dw pairs (mma) or units (ffma) the block's threads
+    hold and whose stages fit in shared memory at the largest reach. A
+    slab of at most 32 channels takes 256-row tiles, else 64. Two stages
+    where they fit, else one. The B*T rows are cut into tiles of `rows`
+    rows of one utterance, and slot s sums tiles [tiles*s//n_slots,
+    tiles*(s+1)//n_slots) of every slab: the fewest slots that fill the
+    SMs, at most one per tile and `_MAX_SLOT_WORDS` words of scratch.
+    """
+    def fits(variant, rows, isl, stages=1):
+        return bwd_smem_bytes(variant, rows, isl, K, cout, stages) \
+            <= _SMEM_BYTES
+
+    if cin == 1 and cout <= _STREAM_MAX_OUT and fits("stream", 256, 1, 2):
+        variant, isl = "stream", 1
+    elif dtype == torch.bfloat16 and cin % 8 == 0 and cin >= 16 \
+            and cout % 8 == 0 and cout <= _MMA_MAX_OUT:
+        variant = "mma"
+        pairs = (8 // _dw_groups(cout)) * _MMA_PAIRS_PER_WARP[64]
+        isl = min(_MMA_MAX_SLAB, 16 * (pairs // K), _up(cin, 16))
+        while isl > 16 and not fits("mma", 64, isl):
+            isl -= 16
+    else:
+        variant = "ffma"
+        isl = min(_FFMA_MAX_SLAB, _up(cin, 8))
+        while isl > 8 and (K * (isl // 4) * _up(cout, 8) // 8 > _FFMA_UNITS
+                           or not fits("ffma", 64, isl)):
+            isl -= 8
+    rows = BWD_ROWS[variant][0]
+    if variant != "stream" and isl <= _WIDE_SLAB and fits(variant, 256, isl) \
+            and (variant == "ffma" or K * -(-isl // 16) <= (
+                8 // _dw_groups(cout)) * _MMA_PAIRS_PER_WARP[256]):
+        rows = 256
+    stages = 2 if fits(variant, rows, isl, 2) else 1
+    n_islabs = -(-cin // isl)
+    tiles = B * -(-T // rows)
+    blocks = _BWD_BLOCKS_PER_SM[variant] * _SMS
+    n_slots = max(1, min(tiles, -(-blocks // n_islabs),
+                         _MAX_SLOT_WORDS // (K * cin * cout + cout)))
+    return {"variant": variant, "rows": rows, "isl": isl,
+            "n_islabs": n_islabs, "stages": stages, "tiles": tiles,
+            "n_slots": n_slots}
+
+
+def slot_tiles(plan: dict, slot: int) -> range:
+    """The row tiles that `slot` of a backward plan sums."""
+    n, s = plan["tiles"], plan["n_slots"]
+    return range(n * slot // s, n * (slot + 1) // s)
 
 
 def fused_conv1d_bwd(x, g, weight, lo: int, hi: int, dilation: int,
@@ -227,7 +332,9 @@ def fused_conv1d_bwd(x, g, weight, lo: int, hi: int, dilation: int,
     dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty((K, cin, cout), dtype=torch.float32, device=dev)
     db = torch.empty((cout,), dtype=torch.float32, device=dev)
-    n_slots = bwd_slots(B, T, K, cin, cout)
+    plan = bwd_plan(x.dtype, B, T, K, cin, cout)
+    _aligned16("fused_conv1d_bwd", x, g)
+    n_slots = plan["n_slots"]
     part_w = torch.empty((n_slots, K, cin, cout), dtype=torch.float32,
                          device=dev)
     part_b = torch.empty((n_slots, cout), dtype=torch.float32, device=dev)
@@ -241,7 +348,9 @@ def fused_conv1d_bwd(x, g, weight, lo: int, hi: int, dilation: int,
              0 if slope is None else 1,
              0.0 if slope is None else stream_slope(slope, x.dtype),
              0.0 if slope is None else float(slope),
-             n_slots, _build.stream_handle(dev))
+             BWD_VARIANTS[plan["variant"]], plan["rows"], n_slots,
+             plan["isl"], plan["n_islabs"], plan["stages"],
+             _build.stream_handle(dev))
     _build.check(err, name)
     fused_conv1d_bwd.launches += 1
     return dx, dw, db

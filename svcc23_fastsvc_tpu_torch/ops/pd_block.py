@@ -15,14 +15,17 @@ before the out product, and y is cast to x's type.
 
 `pd_fixed_chain` applies K fixed blocks back to back in one kernel, each
 stage reflect-padding its own input, as the blocks applied one after
-another do (each stage's output rounded to x's type).
+another do (each stage's output rounded to x's type, each stage on the
+variant the block kernels run at its widths: the same bits).
 
 They replace the TPU kernels `svcc23_fastsvc_tpu/ops/pallas_pd_block.py::
 pd_adaptive_block`, `pd_fixed_block` and `pd_fixed_chain`; the CUDA
 sources are `csrc/pd_block.cuh` (the block's math on a group of rows),
 `csrc/pd_block.cu` and `csrc/pd_chain.cu`, whose headers say how the TPU
 kernels' halo windows became per-row source indices and what bounds the
-kernels on the H100.
+kernels on the H100. Which of the block kernels' variants runs (tensor
+cores in bf16, FFMA otherwise) and its tile is `block_plan`, a function of
+dtype and widths alone that the C entries check.
 
 `params` follow the JAX package's block layout: {"convC", "convP",
 "convF", "aux", "out"} (adaptive) or {"conv", "aux", "out"} (fixed), each
@@ -37,6 +40,7 @@ tensor it takes its plain PyTorch version (`*_plain`), which the tests and
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -47,6 +51,7 @@ from .conv import reflect_pad1d
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_RESIDUAL = 64  # kMaxR in csrc/pd_block.cuh
 MAX_GATE = 128     # 2 * kMaxHalf
+MAX_FEATURES = 272  # kMaxFeatures in csrc/pd_block.cu: 3R + A at most
 MAX_CHAIN = 16     # kMaxChain in csrc/pd_chain.cu
 MAX_CHAIN_REACH = 159  # kMaxReach: the sum of a chain's dilations
 
@@ -78,6 +83,8 @@ class _Args(ctypes.Structure):
         ("R", ctypes.c_longlong), ("A", ctypes.c_longlong),
         ("G", ctypes.c_longlong), ("hop", ctypes.c_longlong),
         ("n_frames", ctypes.c_longlong), ("dil", ctypes.c_longlong),
+        ("variant", ctypes.c_longlong), ("tile_rows", ctypes.c_longlong),
+        ("n_blocks", ctypes.c_longlong),
     ]
 
 
@@ -90,6 +97,7 @@ class _ChainArgs(ctypes.Structure):
         ("B", ctypes.c_longlong), ("T", ctypes.c_longlong),
         ("R", ctypes.c_longlong), ("A", ctypes.c_longlong),
         ("G", ctypes.c_longlong), ("K", ctypes.c_longlong),
+        ("variant", ctypes.c_longlong),
         ("dil", ctypes.c_longlong * MAX_CHAIN),
         ("blk", _Weights * MAX_CHAIN),
     ]
@@ -97,6 +105,51 @@ class _ChainArgs(ctypes.Structure):
 
 _ARGTYPES = [ctypes.POINTER(_Args), ctypes.c_void_p]
 _CHAIN_ARGTYPES = [ctypes.POINTER(_ChainArgs), ctypes.c_void_p]
+
+# The block kernels' plan: variant ids of csrc/pd_block.cuh's enum, and the
+# rows of a tile each variant's instance is compiled for. The grid is
+# persistent: one block per SM of an H100, at most one per tile.
+BLOCK_VARIANTS = {"mma": 0, "ffma": 1}
+_BLOCK_TILE_ROWS = {"mma": 128, "ffma": 256}
+_SMS = 132
+_SMEM_BYTES = 232448  # shared memory a block may use on the H100
+
+
+def _mma_smem_bytes(R: int, A: int) -> int:
+    """mma_smem_bytes in csrc/pd_block.cu: two stages of 128 gathered rows
+    and the gate weight (rows of 3R + A features padded to 16, plus eight),
+    Wo, the biases and the run of c's rows."""
+    ld = -(-(3 * R + A) // 16) * 16 + 8
+    return (2 * (2 * 128 + MAX_GATE) * ld + 2 * MAX_RESIDUAL * 72
+            + 4 * (MAX_GATE + MAX_RESIDUAL) + ((128 * A * 2 + 31) & ~15))
+
+
+@functools.lru_cache(maxsize=None)
+def block_plan(dtype, B: int, T: int, R: int, A: int, G: int) -> dict:
+    """The block kernels' variant, tile rows and grid for (B, T, R) x,
+    (B, T, A) c and a G-wide gate (cached: callers read it and never change
+    it). The chain's stages take the same variant.
+
+    bf16 with R a multiple of 8 runs on the tensor cores ("mma": the taps'
+    rows come in as 16-byte copies) where its shared memory holds the
+    widths; f32, and bf16 otherwise, on the FFMA loop ("ffma"). Both hold
+    the block's whole gate weight in shared memory, which bounds the widths:
+    R <= 64, G <= 128 and 3R + A <= 272 (the vocoders here have 3R + A of
+    254-255; a block wider than that raises). The grid is the smaller of the
+    tile count and the SM count; block i takes tiles i, i + n_blocks, ...
+    and loads the block's weights once.
+    """
+    if not (1 <= R <= MAX_RESIDUAL and 2 <= G <= MAX_GATE and G % 2 == 0
+            and A >= 0 and 3 * R + A <= MAX_FEATURES):
+        raise ValueError(f"the block kernels take R <= {MAX_RESIDUAL}, even G "
+                         f"<= {MAX_GATE} and 3R + A <= {MAX_FEATURES}, got R="
+                         f"{R} A={A} G={G}")
+    variant = "mma" if dtype == torch.bfloat16 and R % 8 == 0 \
+        and _mma_smem_bytes(R, A) <= _SMEM_BYTES else "ffma"
+    rows = _BLOCK_TILE_ROWS[variant]
+    tiles = B * -(-T // rows)
+    return {"variant": variant, "tile_rows": rows, "tiles": tiles,
+            "n_blocks": max(1, min(tiles, _SMS))}
 
 
 def pd_block_halo(dilation: int, fs: int, dense: int = 4,
@@ -266,12 +319,18 @@ def _run(name, x, args, argtypes):
 
 
 def _launch(name, x, c, parts, *, shifts=None, hop=0, dilation=0):
-    """Fill PdBlockArgs and launch `name`_f32 or _bf16 on x's stream."""
+    """Fill PdBlockArgs with the plan and launch `name`_f32 or _bf16 on x's
+    stream."""
     _cuda_args(name, x, c, [parts])
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
     B, T, R = x.shape
+    plan = block_plan(x.dtype, B, T, R, *parts[1].shape)
+    # the kernels copy x's and c's rows in 16-byte pieces (fresh
+    # allocations always qualify)
+    if x.data_ptr() % 16 or c.data_ptr() % 16:
+        raise ValueError(f"{name} needs x and c 16-byte aligned")
     a = _Args()
     a.x, a.c, a.y = x.data_ptr(), c.data_ptr(), y.data_ptr()
     a.shifts = None if shifts is None else shifts.data_ptr()
@@ -279,6 +338,8 @@ def _launch(name, x, c, parts, *, shifts=None, hop=0, dilation=0):
     a.B, a.T, a.R, a.A, a.G = B, T, R, *parts[1].shape
     a.hop, a.dil = hop, dilation
     a.n_frames = 0 if shifts is None else shifts.shape[1]
+    a.variant = BLOCK_VARIANTS[plan["variant"]]
+    a.tile_rows, a.n_blocks = plan["tile_rows"], plan["n_blocks"]
     _run(name, x, a, _ARGTYPES)
     return y
 
@@ -349,9 +410,14 @@ def pd_fixed_chain(x, c, params_list, *, dilations):
     if y.numel() == 0:
         return y
     B, _, R = x.shape
+    plan = block_plan(x.dtype, B, T, R, *parts[0][1].shape)
+    # the mma stages copy x's rows in 16-byte pieces
+    if x.data_ptr() % 16:
+        raise ValueError("pd_fixed_chain needs x 16-byte aligned")
     a = _ChainArgs()
     a.x, a.c, a.y = x.data_ptr(), c.data_ptr(), y.data_ptr()
     a.B, a.T, a.R, a.A, a.G, a.K = B, T, R, *parts[0][1].shape, K
+    a.variant = BLOCK_VARIANTS[plan["variant"]]
     for j, (d, p) in enumerate(zip(dilations, parts)):
         if tuple(p[1].shape) != (a.A, a.G):
             raise ValueError("pd_fixed_chain: the blocks' widths differ")

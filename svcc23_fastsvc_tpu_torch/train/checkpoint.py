@@ -43,12 +43,23 @@ def load_generator_state(path: str):
     return sd["model"]["generator"], int(sd.get("steps", 0))
 
 
-def load_vocoder(path: str, cfg: dict, *, device="cpu", dtype=None):
+def _device(device):
+    """`device` as a torch.device; raises for cuda without a CUDA device
+    (no silent CPU fallback: the CPU is asked for with device="cpu")."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("loading onto cuda needs a CUDA device; pass "
+                           "device='cpu' to load onto the CPU")
+    return device
+
+
+def load_vocoder(path: str, cfg: dict, *, device="cuda", dtype=None):
     """(HN-uSFGAN generator, steps) from a reference-layout checkpoint: built
     from `cfg` (`config.build_vocoder`), weight norm folded, in eval mode on
     `device` with parameters in `dtype` (default f32)."""
     from ..config import build_vocoder
 
+    device = _device(device)
     sd, steps = load_generator_state(path)
     wn = any(k.endswith(".weight_v") for k in sd)
     voc = build_vocoder(cfg, use_weight_norm=wn)
@@ -58,7 +69,7 @@ def load_vocoder(path: str, cfg: dict, *, device="cpu", dtype=None):
     return voc, steps
 
 
-def load_acoustic_model(path: str, cfg: dict, *, device="cpu", dtype=None):
+def load_acoustic_model(path: str, cfg: dict, *, device="cuda", dtype=None):
     """(B02 Tacotron2, steps) from a reference-layout checkpoint: built from
     `cfg` (`config.build_acoustic_model`), in eval mode on `device` with
     every floating tensor (batch-norm statistics too) in `dtype` (default
@@ -66,6 +77,7 @@ def load_acoustic_model(path: str, cfg: dict, *, device="cpu", dtype=None):
     so is its postnet, which its forward never calls."""
     from ..config import build_acoustic_model
 
+    device = _device(device)
     sd, steps = load_generator_state(path)
     prefix = "acoustic_network."
     sd = {k[len(prefix):] if k.startswith(prefix) else k: v

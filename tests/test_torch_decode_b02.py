@@ -122,7 +122,7 @@ def test_cli_writes_the_jax_bundles(b02, tmp_path):
     assert sorted(os.listdir(out)) == [f"{u}_spkB.h5" for u in sorted(UTTS)]
     cfg = yaml.safe_load((b02 / "exp" / "config.yml").read_text())
     model, steps = load_acoustic_model(
-        str(b02 / "exp" / "checkpoint-7steps.pkl"), cfg)
+        str(b02 / "exp" / "checkpoint-7steps.pkl"), cfg, device="cpu")
     assert steps == 7 and next(model.parameters()).dtype == torch.float32
     ds = B02Dataset(str(b02 / "dump"))
     rng = torch.Generator().manual_seed(0)  # the CLI's prenet masks

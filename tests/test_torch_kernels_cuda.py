@@ -7,13 +7,20 @@ on a machine that has only PyTorch:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 """
 
+import ctypes
+import os
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
 from svcc23_fastsvc_tpu_torch.models.fastsvc import FastSVCGenerator
 from svcc23_fastsvc_tpu_torch.models.hnusfgan import HNUSFGANGenerator
+from svcc23_fastsvc_tpu_torch.ops import _build
 from svcc23_fastsvc_tpu_torch.ops import conv as conv_mod
+from svcc23_fastsvc_tpu_torch.ops import fused_conv as fc_mod
+from svcc23_fastsvc_tpu_torch.ops import pd_block as pb_mod
 from svcc23_fastsvc_tpu_torch.ops.down_chain import (
     down_chain_fwd,
     down_chain_fwd_plain,
@@ -21,12 +28,14 @@ from svcc23_fastsvc_tpu_torch.ops.down_chain import (
 )
 from svcc23_fastsvc_tpu_torch.ops.fused_conv import (
     FusedConv1d,
+    bwd_plan,
     fused_conv1d,
     fused_conv1d_bwd,
     fused_conv1d_bwd_plain,
     fused_conv1d_plain,
 )
 from svcc23_fastsvc_tpu_torch.ops.pd_block import (
+    block_plan,
     pd_adaptive_block,
     pd_adaptive_block_plain,
     pd_block_halo,
@@ -371,6 +380,8 @@ ADAPTIVE_CASES = [
     (1, 2000, 8, 16, 10, 100, 2, (0, 30), True),
     (2, 960, 64, 128, 62, 160, 16, "halo", True),  # clamp, past both ends
     (2, 960, 16, 32, 10, 160, 1, "any", False),  # negative and int32 extremes
+    (2, 3200, 64, 128, 63, 160, 2, (0, 60), True),  # odd aux: c by elements
+    (1, 1600, 12, 24, 10, 160, 1, (0, 40), False),  # R % 8: bf16 on ffma
 ]
 
 
@@ -403,6 +414,9 @@ FIXED_CASES = [
     (2, 1007, 16, 32, 10, 8, False),     # T not a multiple of 32
     (1, 333, 64, 128, 62, 300, True),    # reflection reaches deep
     (2, 24000, 64, 128, 62, 512, True),  # the filter net's largest dilation
+    (2, 1000, 64, 128, 63, 3, True),     # odd aux (B02 features: 63)
+    (1, 700, 12, 24, 10, 5, False),      # R % 8: bf16 on ffma
+    (1, 900, 64, 128, 80, 2, True),      # 3R + A = 272: bf16 on ffma
 ]
 
 
@@ -417,6 +431,93 @@ def test_pd_fixed_block_kernel_matches_plain(cuda, dtype, tol, B, T, R, G, A,
     torch.cuda.synchronize()
     assert pd_fixed_block.launches == before + 1
     _close(got, pd_fixed_block_plain(x, c, params, dilation=dil), tol)
+
+
+def _bf16_values(r, lo, hi, shape):
+    """bf16 values of magnitude in [lo, hi] and random sign, as f64."""
+    v = r.uniform(lo, hi, shape) * r.choice([-1.0, 1.0], shape)
+    return torch.from_numpy(v).to(torch.bfloat16).double()
+
+
+@pytest.mark.parametrize("kind", ["fixed", "adaptive"])
+def test_bf16_block_gate_is_f32_at_large_negative_b(cuda, kind):
+    """The gate runs in f32 in the tensor-core variant too, where
+    sigmoid(b) is far below a hardware tanh's 2^-11 error. With x = 0, one
+    feature of c set to +-1 a row, Wo = I and no out bias, h = +-Wa + bg is
+    exact in f32 and y is z * sqrt(0.5), each rounded once: y must be the
+    value the exact z (f64) gives, rounded to bf16, and where the exact z
+    lies within 2^-18 (relative) of a bf16 rounding boundary, the value of
+    either neighbour. b runs over [-30, -6], a over +-[0.25, 12]."""
+    R, G, A, B, T, hop = 64, 128, 62, 1, 1280, 160
+    r = np.random.default_rng(21)
+    wa = torch.cat([_bf16_values(r, 0.25, 12, (A, G // 2)),
+                    _bf16_values(r, 0.25, 12, (A, G // 2))], 1)
+    bg = torch.cat([torch.zeros(G // 2), torch.full((G // 2,), -18.0)])
+    bg = bg.double()
+    c = torch.zeros((B, T, A), dtype=torch.float64)
+    c[0, torch.arange(T), torch.from_numpy(r.integers(0, A, T))] = \
+        torch.from_numpy(r.choice([-1.0, 1.0], T))
+    # the exact gate, and the two roundings either side of a boundary
+    h = c @ wa + bg
+    z = torch.tanh(h[..., :G // 2]) * torch.sigmoid(h[..., G // 2:])
+    sqrt_half = torch.tensor(0.5 ** 0.5, dtype=torch.float32)
+    y_lo, y_hi = ((z * f).to(torch.bfloat16).float() * sqrt_half
+                  for f in (1 - 2 ** -18, 1 + 2 ** -18))
+    y_lo, y_hi = y_lo.to(torch.bfloat16), y_hi.to(torch.bfloat16)
+
+    def conv(w, b=None):
+        p = {"w": w.to(cuda, torch.bfloat16)}
+        if b is not None:
+            p["b"] = b.to(cuda, torch.bfloat16)
+        return p
+    zero_w = torch.zeros((1, R, G))
+    params = {"aux": conv(wa[None]), "out": conv(torch.eye(R)[None],
+                                                 torch.zeros(R))}
+    x = torch.zeros((B, T, R), dtype=torch.bfloat16, device=cuda)
+    cd = c.to(cuda, torch.bfloat16)
+    if kind == "fixed":
+        params["conv"] = conv(torch.zeros((3, R, G)), bg)
+        got = pd_fixed_block(x, cd, params, dilation=3)
+    else:
+        params["convC"] = conv(zero_w, bg)
+        params["convP"] = conv(zero_w, torch.zeros(G))
+        params["convF"] = conv(zero_w, torch.zeros(G))
+        shifts = torch.zeros((B, T // hop), dtype=torch.int32, device=cuda)
+        got = pd_adaptive_block(x, cd, shifts, params, hop=hop)
+    assert block_plan(torch.bfloat16, B, T, R, A, G)["variant"] == "mma"
+    got = got.cpu()
+    ok = (got == y_lo) | (got == y_hi)
+    assert ok.all().item(), (z[~ok][:4], got[~ok][:4], y_lo[~ok][:4])
+
+
+def test_pd_block_entry_refuses_a_plan_no_instance_takes(cuda):
+    """The C entry checks the plan: an unknown tile or an mma plan in f32
+    returns a CUDA error before any launch."""
+    x, c = (t.to(cuda) for t in _block_inputs(1, 640, 64, 62, seed=4))
+    params = _to(_block_weights("fixed", 64, 128, 62, 4, False), cuda,
+                 torch.float32)
+    parts = pb_mod._check_fixed(x, c, params)
+    y = torch.empty_like(x)
+    fn = _build.kernel("pd_fixed_block_f32", pb_mod._ARGTYPES)
+    for variant, rows in (("ffma", 128), ("mma", 128), ("mma", 256)):
+        a = pb_mod._Args()
+        a.x, a.c, a.y, a.shifts = x.data_ptr(), c.data_ptr(), y.data_ptr(), None
+        pb_mod._fill(a.wt, *parts)
+        a.B, a.T, a.R, a.A, a.G, a.hop, a.n_frames, a.dil = 1, 640, 64, 62, \
+            128, 0, 0, 2
+        a.variant, a.tile_rows = pb_mod.BLOCK_VARIANTS[variant], rows
+        a.n_blocks = 5
+        assert fn(ctypes.byref(a), _build.stream_handle(x.device)) != 0
+    # the chain's f32 entry refuses the tensor-core variant and an unknown
+    # one
+    chain = _build.kernel("pd_fixed_chain_f32", pb_mod._CHAIN_ARGTYPES)
+    for variant in (pb_mod.BLOCK_VARIANTS["mma"], 7):
+        a = pb_mod._ChainArgs()
+        a.x, a.c, a.y = x.data_ptr(), c.data_ptr(), y.data_ptr()
+        a.B, a.T, a.R, a.A, a.G, a.K = 1, 640, 64, 62, 128, 1
+        a.variant, a.dil[0] = variant, 2
+        pb_mod._fill(a.blk[0], *parts)
+        assert chain(ctypes.byref(a), _build.stream_handle(x.device)) != 0
 
 
 def test_pd_block_kernels_reject_a_gate_too_wide(cuda):
@@ -493,8 +594,10 @@ def test_pd_fixed_chain_kernel_matches_plain(cuda, dtype, tol, B, T, R, G, A,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pd_fixed_chain_kernel_gives_the_block_kernels_bits(cuda, dtype):
-    """Each stage sums in the block kernel's order and rounds its output to
-    the stream type, so the chain equals the blocks one after another."""
+    """Each stage runs the routine of the block kernels' variant at these
+    widths (FFMA in f32, the tensor cores in bf16), in the same order of
+    summation, and rounds its output to the stream type, so the chain
+    equals the blocks one after another bit for bit."""
     dils = (1, 2, 4, 8, 16)
     x, c = (t.to(cuda, dtype) for t in _block_inputs(2, 3000, 64, 62, seed=9))
     params = _chain_weights(64, 128, 62, dils, True, cuda, dtype)
@@ -716,6 +819,52 @@ def test_fused_conv_kernels_take_a_strided_weight_view(cuda):
     for got, want in zip(fused_conv1d_bwd(x, g, view, 2, 4, 3, 0.2),
                          fused_conv1d_bwd_plain(x, g, w, 2, 4, 3, 0.2)):
         _close(got, want, 2e-4)
+
+
+def test_fused_conv_backward_entry_refuses_a_plan_no_instance_takes(cuda):
+    """The C entry checks the plan (variant, row tile, slab) before any
+    launch: an unknown row tile, mma in f32 or a slab the slot scratch was
+    not sized for returns a CUDA error."""
+    x, w, _, g = _fused_case(2, 640, 24, 24, 3, torch.float32, cuda, 7)
+    plan = bwd_plan(torch.float32, 2, 640, 3, 24, 24)
+    n = plan["n_slots"]
+    part_w = torch.empty((n, 3, 24, 24), device=cuda)
+    part_b = torch.empty((n, 24), device=cuda)
+    dx, dw, db = (torch.empty_like(x), torch.empty((3, 24, 24), device=cuda),
+                  torch.empty(24, device=cuda))
+    fn = _build.kernel("fused_conv_bwd_f32", fc_mod._BWD_ARGTYPES)
+    for variant, rows, isl, n_islabs in (("ffma", 128, 24, 1),
+                                         ("mma", 64, 32, 1),
+                                         ("ffma", 64, 24, 2)):
+        err = fn(x.data_ptr(), g.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                 part_w.data_ptr(), part_b.data_ptr(), dw.data_ptr(),
+                 db.data_ptr(), 2, 640, 24, 24, 3, 1, 1, *w.stride(), 1, 0.2,
+                 0.2, fc_mod.BWD_VARIANTS[variant], rows, n, isl, n_islabs, 1,
+                 _build.stream_handle(x.device))
+        assert err != 0
+
+
+def test_mma_instances_run_on_the_tensor_cores(cuda):
+    """The bf16 mma instances of the fused-conv backward (#6) and of the
+    gated blocks (#8, #10) hold HMMA instructions in their SASS."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        pytest.skip("the toolkit has no cuobjdump")
+    out = subprocess.run([tool, "-sass", _build.build()], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+            fn = name if ("fused_bwd_mma" in name
+                          or "pd_block_mma" in name) else None
+            if fn is not None:
+                counts[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            counts[fn] += 1
+    assert sum("fused_bwd_mma" in k for k in counts) == 2
+    assert sum("pd_block_mma" in k for k in counts) == 2
+    assert all(n > 0 for n in counts.values()), counts
 
 
 def test_fused_conv_backward_can_skip_dx(cuda):

@@ -114,7 +114,7 @@ def test_synthesize_cli_matches_the_vocoder_and_jax(b02, tmp_path):
         "--outdir", str(out), "--device", "cpu", "--verbose", "0"])
     assert sorted(os.listdir(out)) == [f"{u}_gen.wav" for u in sorted(UTTS)]
     voc, steps = load_vocoder(str(root / "vocoder" / "checkpoint-11steps.pkl"),
-                              VOC_CFG)
+                              VOC_CFG, device="cpu")
     assert steps == 11
     apply = jax.jit(_jax_vocoder().apply)
     for i, utt in enumerate(sorted(UTTS)):
