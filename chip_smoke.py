@@ -10,9 +10,9 @@ Phases, each printed on one line with its elapsed seconds:
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile `svcc23_fastsvc_tpu_torch/csrc/*.cu` with nvcc (sm_90a);
    where the toolkit has cuobjdump, count the HMMA instructions of every
-   window-conv, wgrad, fused-conv backward and gated-block instance and
-   require some in each mma variant (the window convs', #6's and the
-   blocks').
+   window-conv, wgrad, fused-conv backward, gated-block, chain and
+   down-chain instance and require some in each mma variant (the window
+   convs', #6's, the blocks', the chain's and the down chain's).
 3. kernels: each kernel against its plain PyTorch version, in f32 (TF32
    off) and bf16: the forward at the decode shapes of a 400-frame batch of
    8, dx and wgrad at the training shapes of the recipe's batch (32 x 16000
@@ -31,7 +31,7 @@ Phases, each printed on one line with its elapsed seconds:
    that ran (mma, ffma, stream) and the device time of the kernel and of
    the library call (`queued_ms`: 20 calls queued behind a spin kernel,
    CUDA events), since event times of 20 calls as the host issues them
-   floor at the host's cost of a call.
+   floor at the host's cost of a call; the sine's device time too.
 6. profile: under `torch.profiler`, the device time of each kernel of one
    decode batch (f32, bf16) and the device's busy share of the batch's
    wall time; the sine kernels' device time at 400 and 3000 frames.
@@ -72,8 +72,9 @@ Phases, each printed on one line with its elapsed seconds:
 13. vocoder chain kernel: `pd_fixed_chain` against its plain version on the
    vocoder's own weights at 8 x 24000 samples, f32 and bf16, for the noise
    net's (1, 1, 1, 1, 1) and a filter cycle's (1, 2, 4, 8, 16): its error,
-   whether it equals the block kernels bit for bit, its time, its plain
-   version's, and the time of the five `pd_fixed_block` launches it
+   whether it equals the block kernels bit for bit, its variant and grid
+   (`chain_plan`), its time and device time, its plain version's time, and
+   the time and device time of the five `pd_fixed_block` launches it
    replaces.
 14. vocoder with FASTSVC_PD_CHAIN=5: the same batches through `vocode`,
    exactly 20 adaptive, 4 chain and 15 fixed launches per forward, the
@@ -82,8 +83,9 @@ Phases, each printed on one line with its elapsed seconds:
    beside phase 12's.
 15. down chain: `down_chain_fwd` against its plain version on the
    generator's DownsampleBlocks at the four decode shapes (8 x 4 s) and
-   the JAX A/B tool's two (batch 32), f32 and bf16, with its time, its
-   plain version's, and the time of the three window convs and the
+   the JAX A/B tool's two (batch 32), f32 and bf16, with its variant, tile
+   and grid (`down_plan`), its time and device time, its plain version's
+   time, and the time and device time of the three window convs and the
    residual it replaces.
 16. decode with the down-chain mode on: the batches of phase 4 through
    `synthesize`, exactly 36 window-conv, 8 down-chain and 1 sine launches
@@ -322,7 +324,7 @@ def sass_hmma_counts(lib_path, nvcc_path):
             name = ln.split("Function :", 1)[1].strip()
             fn = name if any(k in name for k in (
                 "window_conv_", "wgrad_", "fused_bwd_", "pd_block_",
-                "pd_chain_")) else None
+                "pd_chain_", "down_chain_")) else None
             if fn is not None:
                 counts[fn] = 0
         elif fn is not None and "HMMA" in ln:
@@ -627,6 +629,7 @@ def vocoder_phases(dev, phases):
     from svcc23_fastsvc_tpu_torch.models.hnusfgan import PD_HALO_FS
     from svcc23_fastsvc_tpu_torch.ops.pd_block import (
         block_plan,
+        chain_plan,
         frame_shifts,
         pd_adaptive_block,
         pd_adaptive_block_plain,
@@ -865,12 +868,82 @@ def vocoder_phases(dev, phases):
                 "equals_the_block_kernels": same,
             })
             k = chain_cases[-1]
+            plan = chain_plan(dtype, VB, T, 64, 62, 128, tuple(dils))
+            k.update(grid={n: plan[n] for n in (
+                         "n_blocks", "seg_rows", "tile_rows", "region_rows")},
+                     device_ms=queued_ms(
+                         lambda: pd_fixed_chain(x, c, params, **kw)),
+                     replaced_device_ms=queued_ms(blocks))
             say(f"{k['name']}: max err {err:.3e} (scale {scale:.3e}); "
                 f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, the {len(dils)}"
                 f" block launches it replaces {k['replaced_ms']:.4f}, library "
                 f"none, bound {k['bound_ms']:.4f} by {k['bound_by']}); equal "
-                f"to the block kernels bit for bit: {same}")
+                f"to the block kernels bit for bit: {same}; {k['variant']}, "
+                f"grid {k['grid']}, device {k['device_ms']:.4f} ms, the block "
+                f"launches' device {k['replaced_device_ms']:.4f} ms")
         del x, c
+
+    # 13, the wide walk: at widths the mma and ffma walks do not hold
+    # (3R + A = 288; G = 160), a fixed block and a chain of five at the
+    # vocoder's shape against their plain versions, the chain against the
+    # blocks bit for bit (the JAX vocoder takes every width)
+    def wide_params(R, A, G, dtype):
+        def w(*shape):
+            return (torch.randn(shape, generator=gen, device=dev)
+                    / (shape[0] * shape[1]) ** 0.5).to(dtype)
+        return {"conv": {"w": w(3, R, G), "b": w(1, G)[0]},
+                "aux": {"w": w(1, A, G)}, "out": {"w": w(1, G // 2, R),
+                                                  "b": w(1, R)[0]}}
+    dils = (1, 2, 4, 8, 16)
+    for R, A, G in ((64, 96, 128), (64, 62, 160)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((VB, T, R), generator=gen, device=dev).to(dtype)
+            c = torch.randn((VB, T, A), generator=gen, device=dev).to(dtype)
+            params = [wide_params(R, A, G, dtype) for _ in dils]
+            require(block_plan(dtype, VB, T, R, A, G)["variant"] == "wide"
+                    and chain_plan(dtype, VB, T, R, A, G, dils)["variant"]
+                    == "wide", f"R {R} A {A} G {G}: not the wide walk")
+
+            def blocks(x=x, c=c, params=params):
+                for p, d in zip(params, dils):
+                    x = pd_fixed_block(x, c, p, dilation=d)
+                return x
+            errs = {}
+            for what, fn, plain in (
+                    ("block", lambda: pd_fixed_block(x, c, params[0],
+                                                     dilation=1),
+                     lambda: pd_fixed_block_plain(x, c, params[0],
+                                                  dilation=1)),
+                    ("chain", lambda: pd_fixed_chain(x, c, params,
+                                                     dilations=dils),
+                     lambda: pd_fixed_chain_plain(x, c, params,
+                                                  dilations=dils))):
+                y, ref = fn(), plain()
+                torch.cuda.synchronize()
+                err = (y.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                require(torch.isfinite(y).all().item()
+                        and err <= TOL_CONV[dtype] * scale,
+                        f"wide {what} R {R} A {A} G {G} {dtype}: max err "
+                        f"{err} > {TOL_CONV[dtype]} x {scale}")
+                nbytes = (x.numel() + c.numel() + y.numel()) \
+                    * x.element_size()
+                ops = 2 * VB * T * ((3 * R + A) * G + G // 2 * R)
+                if what == "chain":
+                    same = torch.equal(y, blocks())
+                    require(same, f"wide chain R {R} A {A} G {G} {dtype}: "
+                                  "not the blocks' bits")
+                    ops *= len(dils)
+                b_ms, b_by = bound(nbytes, ops, dtype)
+                errs[what] = {"max_abs_err": err, "scale": scale,
+                              "device_ms": queued_ms(fn),
+                              "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                              "bound_ms": b_ms, "bound_by": b_by}
+                del y, ref
+            errs["chain"]["blocks_device_ms"] = queued_ms(blocks)
+            errs["chain"]["equals_the_block_kernels"] = same
+            say(f"wide walk ({VB},{T},{R}|{A}) G {G} {dtype}: {errs}")
+            del x, c
     phases["chain_kernels_s"] = time.perf_counter() - t
 
     # 14. the vocoder's main path with FASTSVC_PD_CHAIN=5: the noise net and
@@ -940,6 +1013,8 @@ def down_chain_phases(dev, phases, gens, sg, inputs, rng_states, ys_off,
     from svcc23_fastsvc_tpu_torch.ops.down_chain import (
         down_chain_fwd,
         down_chain_fwd_plain,
+        down_plan,
+        pack_weights,
         set_down_chain_mode,
     )
     from svcc23_fastsvc_tpu_torch.ops.sine import sine_excitation
@@ -976,6 +1051,10 @@ def down_chain_phases(dev, phases, gens, sg, inputs, rng_states, ys_off,
             def timed(fn, **kw):
                 with torch.inference_mode():
                     return cuda_ms(fn, **kw)
+
+            def device(fn):
+                with torch.inference_mode():
+                    return queued_ms(fn)
             rows.append({
                 "name": f"down_chain_fwd {str(dtype)[6:]} {what} "
                         f"({nb},{T},{cin})->{cout} d=1,2,4",
@@ -992,10 +1071,18 @@ def down_chain_phases(dev, phases, gens, sg, inputs, rng_states, ys_off,
                 "replaced_ms": timed(lambda: blk.unfused(x)),
             })
             k = rows[-1]
+            plan = down_plan(dtype, nb, T, cin, cout)
+            k.update(variant=plan["variant"], rows=plan["tile_rows"],
+                     n_blocks=plan["n_blocks"],
+                     device_ms=device(lambda: down_chain_fwd(x, params)),
+                     replaced_device_ms=device(lambda: blk.unfused(x)))
             say(f"{k['name']}: max err {err:.3e} (scale {scale:.3e}); "
                 f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, the 3 window "
                 f"convs + residual it replaces {k['replaced_ms']:.4f}, "
-                f"library none, bound {k['bound_ms']:.4f} by {k['bound_by']})")
+                f"library none, bound {k['bound_ms']:.4f} by {k['bound_by']})"
+                f"; {k['variant']} ({k['rows']} rows, {k['n_blocks']} "
+                f"blocks), device {k['device_ms']:.4f} ms, the replaced "
+                f"launches' device {k['replaced_device_ms']:.4f} ms")
             del x, y, ref
     phases["down_chain_kernels_s"] = time.perf_counter() - t
 
@@ -1004,7 +1091,7 @@ def down_chain_phases(dev, phases, gens, sg, inputs, rng_states, ys_off,
     ppg, f0_in, lft, emb = inputs
     rng = torch.Generator(device=dev)
     counters = (window_conv, down_chain_fwd, sine_excitation)
-    for k in counters:
+    for k in counters + (pack_weights,):
         k.launches = 0
     set_down_chain_mode("1")
     try:
@@ -1022,8 +1109,14 @@ def down_chain_phases(dev, phases, gens, sg, inputs, rng_states, ys_off,
             require(tuple(ys[dtype].shape) == tuple(ys_off[dtype].shape)
                     and torch.isfinite(ys[dtype]).all().item(),
                     f"decode with the down chain {dtype}: output")
-        launches = {k.__name__: k.launches for k in counters}
-        say(f"decode with the down chain, main path: launches {launches}")
+        launches = {k.__name__: k.launches for k in counters + (pack_weights,)}
+        # the weights are packed once each (here the loudness chain's four
+        # blocks a dtype; phase 15 packed the sine chain's) and reused after
+        require(launches["pack_weights"] <= 16,
+                f"decode with the down chain packed {launches['pack_weights']}"
+                " times; want at most once per block and dtype")
+        say(f"decode with the down chain, main path: launches {launches} "
+            "(pack_weights: the first use of each block's weights)")
         vs_off = {}
         for dtype, y in ys.items():
             err = (y - ys_off[dtype]).abs().max().item()
@@ -1037,6 +1130,7 @@ def down_chain_phases(dev, phases, gens, sg, inputs, rng_states, ys_off,
             f"{err}")
         audio_s = B * TF * HOP / SR
         rate = {}
+        packs = pack_weights.launches
         for dtype, g in gens.items():
             def batch(g=g):
                 synthesize(g, sg, ppg, f0_in, lft, emb, generator_rng=rng)
@@ -1047,6 +1141,9 @@ def down_chain_phases(dev, phases, gens, sg, inputs, rng_states, ys_off,
                                     "kernels_ms": sum(per_kernel.values())}
             for kname, kms in list(per_kernel.items())[:8]:
                 say(f"  {kms:8.4f} ms  {kname[:110]}")
+        require(pack_weights.launches == packs,
+                "the timed decodes packed the weights again")
+        say("timed decodes with the down chain: no weight pack launched")
     finally:
         set_down_chain_mode("0")
     say(f"decode {B} x {TF * HOP / SR:.0f} s with the down chain: {rate}; "
@@ -1054,6 +1151,7 @@ def down_chain_phases(dev, phases, gens, sg, inputs, rng_states, ys_off,
     phases["decode_chain_s"] = time.perf_counter() - t
     for row in rows:
         row["launches"] = launches["down_chain_fwd"]
+        row["pack_launches"] = launches["pack_weights"]
     return rows, launches
 
 
@@ -1504,7 +1602,7 @@ def main():
             say(f"  SASS HMMA {n:4d}  {k[:120]}")
         family = {f: [n for k, n in mma.items() if f in k] for f in (
             "window_conv_mma", "wgrad_mma", "fused_bwd_mma", "pd_block_mma",
-            "pd_chain_mma")}
+            "pd_chain_mma", "down_chain_mma")}
         require(all(family.values()) and all(n > 0 for n in mma.values()),
                 f"mma instances without HMMA, or missing: {family}")
         say(f"SASS HMMA check: {len(mma)} mma instances, all with HMMA "
@@ -1679,6 +1777,8 @@ def main():
         "bound_ms": s_ms,
         "bound_by": s_by,
         "library_ms": None,
+        "device_ms": queued_ms(
+            lambda: sine_excitation(f0, hop=HOP, sr=SR, amp=0.1)),
     })
     for k in kernels:
         say(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
@@ -1686,7 +1786,9 @@ def main():
             f"{k['bound_by']})" + (
                 f"; {k['variant']}, device {k['device_ms']:.4f} ms, library "
                 f"device {k['library_device_ms']:.4f} ms"
-                if "variant" in k else ""))
+                if "variant" in k else
+                f"; device {k['device_ms']:.4f} ms" if "device_ms" in k
+                else ""))
     phases["timings_s"] = time.perf_counter() - t
 
     # 6. profile: device time by kernel, and the device's busy share

@@ -1,8 +1,9 @@
 // The gated residual block of the HN-uSFGAN vocoder: its weights' layout
-// (PdBlockWeights), the tap index helpers, the gate, and the two routines
-// on a group of rows that the per-block kernels (pd_block.cu) and the fused
-// chain of fixed blocks (pd_chain.cu) share. Channels-last (B, T, R) stream
-// x and (B, T, A) conditioning c:
+// (PdBlockWeights), the gate, the in-kernel weight load, the block on one
+// warp's rows on the tensor cores, and the two persistent walks over row
+// tiles that the per-block kernels (pd_block.cu) and the fused chain of
+// fixed blocks (pd_chain.cu) both run. Channels-last (B, T, R) stream x and
+// (B, T, A) conditioning c:
 //
 //   h[t] = x[m(t)] @ Wm + x[t] @ Wc + x[p(t)] @ Wp + c[t] @ Wa + bg   (G wide)
 //   z[t] = tanh(h[t, :G/2]) * sigmoid(h[t, G/2:])    rounded to x's type
@@ -13,23 +14,18 @@
 // f32 (`gate`, tanhf and expf, the same in every variant), z rounded to the
 // stream type before the out product, output cast to the stream type.
 //
-// `gated_block_rows` is a register-tiled FFMA loop: a block of 256 threads
-// takes 128 rows, stages the (32 x 128) input slab and the (32 x G) weight
-// slab of each chunk of the 3R + A input features in shared memory,
-// k-major, and each thread keeps 8 rows x (4 + 4) gate columns (a gate pair
-// per column, so the gate is applied in registers) and reads its operands
-// as float4s; z and Wo then go through shared memory for the out product
-// (8 rows x 4 columns a thread). Where the rows come from and where they go
-// is the caller's `Rows` policy (shared memory in pd_chain.cu). It sums the
-// features in order, bias first, as pd_block.cu's ffma kernels do, so a
-// chain on it gives the per-block ffma kernels' bits. What bounds it on the
-// H100: the operations in f32 FFMA, 2 * (3R + A) * G + 2 * (G/2) * R a row.
-//
-// `mma_block_rows` is the block on one warp's 16 rows on the tensor cores
-// (bf16 operands, f32 sums), with the weights in shared memory as
-// `stage_weights` lays them out. pd_block.cu's mma kernels and pd_chain.cu's
-// mma stages both run it, so in bf16 too a chain gives the per-block
-// kernels' bits.
+// A walk applies one block to a list of row tiles, loading the block's
+// weights into shared memory once (stage_weights) and keeping the next
+// tile's rows in flight while one computes: `mma_walk` (bf16, both products
+// on the tensor cores through `mma_block_rows`) or `ffma_walk` (f32 FFMA,
+// and bf16 widened). Both hold the whole gate weight in shared memory, so
+// they take R <= 64, G <= 128 and 3R + A <= 272 (kMaxR, kMaxHalf,
+// kMaxFeatures); `wide_walk` takes any widths, streaming the weights
+// through shared memory in chunks for every tile. A tile (PdTile) says where its input rows are read and
+// where its output rows go, so one walk runs a block kernel's tiles of x ->
+// y and a chain stage's tiles of one scratch stream -> the next: a chain
+// gives the per-block kernels' bits in both dtypes because it runs their
+// code. Which walk runs is ops/pd_block.py::block_plan's variant.
 
 #pragma once
 
@@ -53,19 +49,10 @@ struct PdBlockWeights {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 128;     // rows (time steps) per group
-constexpr int kKC = 32;        // input features per chunk
+// the widths the mma and ffma walks hold (wide_walk takes any)
 constexpr int kMaxHalf = 64;   // G / 2 at most
 constexpr int kMaxR = 64;      // R at most
-// shared-memory row lengths, padded by one float4
-constexpr int kRowPad = kRows + 4;       // a_s[kk][row], z_s[k][row]
-constexpr int kWPad = 2 * kMaxHalf + 4;  // w_s[kk][half * kMaxHalf + col]
-constexpr int kOPad = kMaxR + 4;         // o_s[k][col]
-constexpr int kPhase1 = kKC * kRowPad + kKC * kWPad;
-constexpr int kPhase2 = kMaxHalf * kRowPad + kMaxHalf * kOPad;
-constexpr int kSmemFloats = kPhase1 > kPhase2 ? kPhase1 : kPhase2;
-// the staging area and the [3][kRows] tap rows
-constexpr size_t kSmemBytes = kSmemFloats * sizeof(float) + 3 * kRows * sizeof(int);
+constexpr int kMaxFeatures = 272;  // 3R + A at most (MAX_FEATURES)
 constexpr size_t kMaxSmemBytes = 232448;  // what one block may use on the H100
 constexpr float kSqrtHalf = 0.70710678118654752f;
 constexpr int kGateRows = 2 * kMaxHalf;  // gate columns in shared memory
@@ -73,7 +60,7 @@ constexpr int kMmaRows = 128;  // rows of an mma group: 8 warps x 16
 constexpr int kOutLd = kMaxHalf + 8;  // Wo rows [o][k] for mma, 9 16-byte units
 
 // the variant ids the wrappers pass (ops/pd_block.py::BLOCK_VARIANTS)
-enum { kPdMma = 0, kPdFfma = 1 };
+enum { kPdMma = 0, kPdFfma = 1, kPdWide = 2 };
 
 // mma rows of features: 3R + A padded with zeros to a multiple of 16 (kp),
 // shared rows eight longer (an odd number of 16-byte units when kp / 8 is
@@ -92,9 +79,6 @@ __device__ __forceinline__ float gate(float a, float b) {
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 
 // reflect t - dil and t + dil into [0, T): -k -> k, T-1+k -> T-1-k (T > dil)
 __device__ __forceinline__ int reflect_lo(int t, int dil) {
@@ -111,173 +95,6 @@ __device__ __forceinline__ float gate_bias(const PdBlockWeights& p, int o) {
     if (p.bg[i] != nullptr)
       v = round_to<T>(v + to_f32(static_cast<const T*>(p.bg[i])[o]));
   return v;
-}
-
-// One block on the group's kRows rows. `src[tap * kRows + r]` is row r's
-// source row for each tap (-1 reads zero), written by the caller before the
-// call. The policy `rows` gives
-//   tap(s, f)      the stream at source row s >= 0, feature f
-//   valid(r)       whether row r of the group is computed
-//   aux(r, a)      the conditioning of row r
-//   resid(r, o)    the stream at row r (the residual)
-//   store(r, o, v) row r's output before its cast to the stream type.
-// Each thread owns rows r0..r0+7 and columns c0..c0+3 (r0 = 8 * (tid / 16),
-// c0 = 4 * (tid % 16)): gate columns c0.. and G/2 + c0.. in the first
-// product, output columns c0.. in the second. Shared-memory operands are
-// stored k-major so that a thread's rows and columns are float4 loads. The
-// call ends with the staging area free again, so a caller may loop over
-// groups; stores go after the last barrier and must not touch `smem`.
-template <typename T, typename Rows>
-__device__ __forceinline__ void gated_block_rows(const PdBlockWeights& p,
-                                                 const Rows& rows, int R, int A,
-                                                 int G2, float* smem,
-                                                 const int* src) {
-  const int KIN = 3 * R + A;
-  const int tid = threadIdx.x;
-  const int r0 = 8 * (tid / 16), c0 = 4 * (tid % 16);
-
-  // the gate product: acc_a for gate columns c0 + j, acc_b for G2 + c0 + j
-  float acc_a[8][4], acc_b[8][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int o = c0 + j;
-    const float ba = o < G2 ? gate_bias<T>(p, o) : 0.f;
-    const float bb = o < G2 ? gate_bias<T>(p, G2 + o) : 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      acc_a[i][j] = ba;
-      acc_b[i][j] = bb;
-    }
-  }
-  float* a_s = smem;                   // [kKC][kRowPad]
-  float* w_s = smem + kKC * kRowPad;   // [kKC][kWPad]
-  // weights are read along whichever of their two strides is unit-like
-  const bool k_fast = p.w_si[0] <= p.w_so[0];
-  __syncthreads();
-  for (int k0 = 0; k0 < KIN; k0 += kKC) {
-    for (int idx = tid; idx < kRows * kKC; idx += kThreads) {
-      const int r = idx / kKC, kk = idx % kKC, f = k0 + kk;
-      float v = 0.f;
-      if (f < 3 * R) {
-        const int tap = f / R, s = src[tap * kRows + r];
-        if (s >= 0) v = rows.tap(s, f - tap * R);
-      } else if (f < KIN && rows.valid(r)) {
-        v = rows.aux(r, f - 3 * R);
-      }
-      a_s[kk * kRowPad + r] = v;
-    }
-    for (int idx = tid; idx < kKC * 2 * kMaxHalf; idx += kThreads) {
-      int kk, hc;
-      if (k_fast) {
-        kk = idx % kKC;
-        hc = idx / kKC;
-      } else {
-        kk = idx / (2 * kMaxHalf);
-        hc = idx % (2 * kMaxHalf);
-      }
-      const int half = hc / kMaxHalf, col = hc % kMaxHalf, f = k0 + kk;
-      float v = 0.f;
-      if (col < G2) {
-        const long long o = (long long)half * G2 + col;
-        if (f < 3 * R) {
-          const int tap = f / R;
-          v = to_f32(static_cast<const T*>(p.w[tap])[
-              (f - tap * R) * p.w_si[tap] + o * p.w_so[tap]]);
-        } else if (f < KIN) {
-          v = to_f32(static_cast<const T*>(p.wa)[
-              (f - 3 * R) * p.wa_si + o * p.wa_so]);
-        }
-      }
-      w_s[kk * kWPad + hc] = v;
-    }
-    __syncthreads();
-    const int kn = min(kKC, KIN - k0);
-#pragma unroll 2
-    for (int kk = 0; kk < kn; ++kk) {
-      const float4 a_lo = ld4(a_s + kk * kRowPad + r0);
-      const float4 a_hi = ld4(a_s + kk * kRowPad + r0 + 4);
-      const float4 wa4 = ld4(w_s + kk * kWPad + c0);
-      const float4 wb4 = ld4(w_s + kk * kWPad + kMaxHalf + c0);
-      const float a[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
-                          a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-      const float wa[4] = {wa4.x, wa4.y, wa4.z, wa4.w};
-      const float wb[4] = {wb4.x, wb4.y, wb4.z, wb4.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc_a[i][j] = fmaf(a[i], wa[j], acc_a[i][j]);
-          acc_b[i][j] = fmaf(a[i], wb[j], acc_b[i][j]);
-        }
-    }
-    __syncthreads();
-  }
-
-  // the gate, in f32, z rounded to the stream type
-  float* z_s = smem;                      // [kMaxHalf][kRowPad]
-  float* o_s = smem + kMaxHalf * kRowPad;  // [kMaxHalf][kOPad]
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int o = c0 + j;
-    if (o >= G2) continue;
-    float z[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      z[i] = round_to<T>(gate(acc_a[i][j], acc_b[i][j]));
-    float4* zp = reinterpret_cast<float4*>(z_s + o * kRowPad + r0);
-    zp[0] = make_float4(z[0], z[1], z[2], z[3]);
-    zp[1] = make_float4(z[4], z[5], z[6], z[7]);
-  }
-  const bool ko_fast = p.wo_si <= p.wo_so;
-  for (int idx = tid; idx < kMaxHalf * kMaxR; idx += kThreads) {
-    int k, o;
-    if (ko_fast) {
-      k = idx % kMaxHalf;
-      o = idx / kMaxHalf;
-    } else {
-      k = idx / kMaxR;
-      o = idx % kMaxR;
-    }
-    float v = 0.f;
-    if (k < G2 && o < R)
-      v = to_f32(static_cast<const T*>(p.wo)[k * p.wo_si + o * p.wo_so]);
-    o_s[k * kOPad + o] = v;
-  }
-  __syncthreads();
-
-  // the out product, bias, residual and scale
-  float out[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-#pragma unroll 2
-  for (int k = 0; k < G2; ++k) {
-    const float4 z_lo = ld4(z_s + k * kRowPad + r0);
-    const float4 z_hi = ld4(z_s + k * kRowPad + r0 + 4);
-    const float4 w4 = ld4(o_s + k * kOPad + c0);
-    const float zv[8] = {z_lo.x, z_lo.y, z_lo.z, z_lo.w,
-                         z_hi.x, z_hi.y, z_hi.z, z_hi.w};
-    const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[i][j] = fmaf(zv[i], wv[j], out[i][j]);
-  }
-  __syncthreads();
-  const T* bo = static_cast<const T*>(p.bo);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = r0 + i;
-    if (!rows.valid(r)) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = c0 + j;
-      if (o >= R) continue;
-      const float v = out[i][j] + to_f32(bo[o]);
-      rows.store(r, o, (v + rows.resid(r, o)) * kSqrtHalf);
-    }
-  }
 }
 
 // The block's weights into shared memory, once per block of threads: the
@@ -493,6 +310,745 @@ __device__ __forceinline__ void mma_block_rows(const bf16* wg, int ld, int kp,
       store(g + 8 * h, o, (v0 + r.x) * kSqrtHalf, (v1 + r.y) * kSqrtHalf);
     }
   }
+}
+
+// ---- walks: one block over a list of row tiles ---------------------------
+
+// A tile of a walk: nv rows of the flattened (B * T) rows from row t0 of
+// utterance b, u0 = b * T + t0 (a chain's tile may run on into the next
+// utterances). Its taps read the stage input's rows src + (src_off + v) * R,
+// v = b' * T + s the flattened index of source row s of the row's own
+// utterance b'; its outputs go to dst + (dst_off + u) * R; c's rows are
+// c + u * A. A block kernel walks x -> y (offsets 0), a chain stage one
+// scratch stream -> the next.
+struct PdTile {
+  int b, t0, nv;
+  long long src_off, dst_off;
+  __device__ long long u0(int T) const { return (long long)b * T + t0; }
+};
+
+// the utterance and row of the tile's row r (r < nv): with kCross (a
+// chain's tiles), a row past T steps into the next utterance without a
+// division; a block kernel's tiles never cross
+template <bool kCross>
+__device__ __forceinline__ void tile_row(const PdTile& tl, int r, int T,
+                                         int& b, int& t) {
+  b = tl.b;
+  t = tl.t0 + r;
+  if constexpr (kCross) {
+    while (t >= T) {
+      t -= T;
+      ++b;
+    }
+  }
+}
+
+// What a walk reads and writes, and the block's side taps
+struct PdWalk {
+  const void* src;
+  void* dst;
+  const void* c;
+  const int* shifts;  // adaptive: (B, n_frames) pitch shifts
+  int T, R, A, G2, hop, n_frames, dil;
+  void* zbuf;  // wide_walk: kWdRows x G2 of the stream type a block of threads
+};
+
+// the source row of tap m (hi = false) or p (hi = true) for stream row t;
+// -1 reads zero
+template <bool kAdaptive>
+__device__ __forceinline__ int side_row(const PdWalk& w, int b, int t,
+                                        bool hi) {
+  if constexpr (kAdaptive) {
+    // any int32 shift: in 64 bits neither tap overflows, and a tap outside
+    // [0, T) reads zero, as in the plain gather
+    const long long s = w.shifts[(size_t)b * w.n_frames + t / w.hop];
+    const long long u = hi ? t + s : t - s;
+    return u >= 0 && u < w.T ? (int)u : -1;
+  } else {
+    return hi ? reflect_hi(t, w.dil, w.T) : reflect_lo(t, w.dil);
+  }
+}
+
+// ---- the mma walk (bf16) --------------------------------------------------
+//
+// pd_block.cuh's mma_block_rows, both products on the tensor cores. A tile
+// is 128 rows; each row's three tap rows and its conditioning row are
+// gathered into one shared row [x[m] | x[t] | x[p] | c | 0], the features
+// padded with zeros to a multiple of 16: 16-byte copies for the taps, while
+// c's rows (62 or 63 features, not 16-byte aligned) come in as one
+// contiguous run of the tile's rows and are spread into the rows in shared
+// memory. The next tile's gather is in flight (cp.async, zero-filled for
+// taps that read zero) while this one computes; the first tile's while the
+// weights come in (stage_weights). The output goes back through the tile's
+// own (dead) tap rows for 16-byte stores.
+
+constexpr int kTapCopies = 3 * kMmaRows * 8 / kThreads;  // 16-byte units a thread
+constexpr int kShiftRows = 4;  // distinct rows among a thread's tap copies
+static_assert(kMmaRows == 128 && kThreads == 256, "the mma walk's row map");
+
+// a tile's rows of c as one run of 16-byte units, from the unit holding its
+// first byte
+__host__ __device__ constexpr int cbuf_bytes(int A) {
+  return (kMmaRows * A * 2 + 31) & ~15;
+}
+
+inline size_t mma_smem_bytes(int R, int A) {
+  return (size_t)(2 * kMmaRows + kGateRows) * mma_ld(R, A) * sizeof(bf16) +
+         (size_t)kMaxR * kOutLd * sizeof(bf16) +
+         (size_t)(kGateRows + kMaxR) * sizeof(float) + cbuf_bytes(A);
+}
+
+// Block `wt` (a kernel parameter, read in place) on tiles(0), ..,
+// tiles(n - 1) (n >= 1, the same in every thread; kCross: tiles may run on
+// into the next utterances).
+template <bool kAdaptive, bool kCross, typename Tiles>
+__device__ __forceinline__ void mma_walk(const PdWalk& w,
+                                         const PdBlockWeights& wt,
+                                         const Tiles& tiles, int n,
+                                         unsigned char* smem) {
+  const int T_len = w.T, R = w.R, A = w.A, G2 = w.G2;
+  const int KIN = 3 * R + A, KP = mma_kp(R, A), ld = mma_ld(R, A);
+  bf16* stages = reinterpret_cast<bf16*>(smem);  // [2][kMmaRows][ld]
+  bf16* wg = stages + 2 * kMmaRows * ld;         // [kGateRows][ld]
+  bf16* wo = wg + kGateRows * ld;                // [kMaxR][kOutLd]
+  float* bg_s = reinterpret_cast<float*>(wo + kMaxR * kOutLd);
+  float* bo_s = bg_s + kGateRows;
+  unsigned char* cbuf = reinterpret_cast<unsigned char*>(bo_s + kMaxR);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bf16* x = static_cast<const bf16*>(w.src);
+  const unsigned char* cbytes = static_cast<const unsigned char*>(w.c);
+  bf16* y = static_cast<bf16*>(w.dst);
+
+  // c's bytes of a tile: [S, E) from the start of c
+  auto c_range = [&](const PdTile& tl, size_t& S, size_t& E) {
+    S = (size_t)tl.u0(T_len) * A * sizeof(bf16);
+    E = S + (size_t)tl.nv * A * sizeof(bf16);
+  };
+  // the utterance (b) and row (t) of the four rows a thread copies, tid / 8
+  // + 32m (copy n of a thread is tap n / 4 of row m = n % 4); rows past nv
+  // are not read
+  auto rows_of = [&](const PdTile& tl, int (&b)[kShiftRows],
+                     int (&t)[kShiftRows]) {
+#pragma unroll
+    for (int m = 0; m < kShiftRows; ++m) {
+      const int r = (tid >> 3) + 32 * m;
+      b[m] = tl.b;
+      t[m] = tl.t0 + r;
+      if (kCross && r < tl.nv) tile_row<kCross>(tl, r, T_len, b[m], t[m]);
+    }
+  };
+  // the adaptive taps' pitch shifts of a tile's rows, loaded ahead of the
+  // copies that need them (taps m and p share a row's shift)
+  auto shifts_of = [&](const PdTile& tl, int (&sh)[kShiftRows]) {
+    if constexpr (kAdaptive) {
+      int b[kShiftRows], t[kShiftRows];
+      rows_of(tl, b, t);
+#pragma unroll
+      for (int m = 0; m < kShiftRows; ++m) {
+        const int r = (tid >> 3) + 32 * m;
+        sh[m] = r < tl.nv ? w.shifts[(size_t)b[m] * w.n_frames + t[m] / w.hop]
+                          : 0;
+      }
+    }
+  };
+  // A tile's tap rows into stage s, 32 lanes copying four rows of one tap
+  // (eight 16-byte units a row), and its c rows into cbuf as one run.
+  auto gather = [&](const PdTile& tl, int s, const int (&sh)[kShiftRows]) {
+    bf16* st = stages + s * kMmaRows * ld;
+    int bm[kShiftRows], tm[kShiftRows];
+    rows_of(tl, bm, tm);
+    const bf16* xb = x + (tl.src_off + (long long)tl.b * T_len) * R;  // row 0 of b
+#pragma unroll
+    for (int n = 0; n < kTapCopies; ++n) {
+      const int idx = tid + kThreads * n;
+      const int seg = idx & 7, rt = idx >> 3;
+      const int tap = rt >> 7, r = rt & (kMmaRows - 1);
+      const int t = kCross ? tm[n % kShiftRows] : tl.t0 + r;
+      if (seg * 8 >= R) continue;
+      int src = -1;
+      if (r < tl.nv) {
+        if (tap == 1) {
+          src = t;
+        } else if constexpr (kAdaptive) {
+          const long long u = tap == 2 ? (long long)t + sh[n % kShiftRows]
+                                       : (long long)t - sh[n % kShiftRows];
+          src = u >= 0 && u < T_len ? (int)u : -1;
+        } else {
+          src = tap == 2 ? reflect_hi(t, w.dil, T_len) : reflect_lo(t, w.dil);
+        }
+      }
+      const bf16* from =
+          kCross ? x + (tl.src_off + (long long)bm[n % kShiftRows] * T_len + src) * R
+                 : xb + (size_t)src * R;
+      cp_async16(st + r * ld + tap * R + seg * 8, src >= 0 ? from + seg * 8 : x,
+                 src >= 0);
+    }
+    size_t S, E;
+    c_range(tl, S, E);
+    const size_t u0 = S >> 4;
+    const int units = (int)(((E + 15) >> 4) - u0);
+    for (int u = tid; u < units; u += kThreads) {
+      const size_t at = (u0 + u) * 16;
+      cp_async16_n(cbuf + u * 16, cbytes + at, (int)min((size_t)16, E - at));
+    }
+    cp_async_commit();
+  };
+
+  int sh[kShiftRows] = {};
+  // the features past 3R + A of both stages (never copied) are zero
+  for (int i = tid; i < 2 * kMmaRows * (KP - KIN); i += kThreads) {
+    const int r = i / (KP - KIN);
+    stages[r * ld + KIN + (i - r * (KP - KIN))] = __float2bfloat16(0.f);
+  }
+  // the first tile's rows in flight while the weights come in
+  shifts_of(tiles(0), sh);
+  gather(tiles(0), 0, sh);
+  if (n > 1) shifts_of(tiles(1), sh);
+  stage_weights<bf16, bf16, true>(wt, R, A, G2, KP, ld, kOutLd, wg, wo, bg_s,
+                                  bo_s);
+
+  int s = 0;
+  PdTile next = tiles(0);
+  for (int i = 0; i < n; ++i, s ^= 1) {
+    const PdTile tl = next;
+    if (i + 1 < n) next = tiles(i + 1);
+    cp_async_wait<0>();
+    __syncthreads();
+    bf16* st = stages + s * kMmaRows * ld;
+    // c's rows from the run into the tile's rows (zeros past nv), a warp a
+    // row, 4-byte words where the run's rows start on them, else elements;
+    // each thread's loads all issued before its stores
+    {
+      const int nv = tl.nv;
+      const int off = (int)(((size_t)tl.u0(T_len) * A * 2) & 15);
+      if (A % 2 == 0 && off % 4 == 0 && A <= 64) {
+        const int words = A / 2;
+        const uint32_t* run = reinterpret_cast<const uint32_t*>(cbuf + off);
+        uint32_t v[kMmaRows / 8];
+#pragma unroll
+        for (int m = 0; m < kMmaRows / 8; ++m) {
+          const int r = warp + 8 * m;
+          v[m] = r < nv && lane < words ? run[r * words + lane] : 0u;
+        }
+#pragma unroll
+        for (int m = 0; m < kMmaRows / 8; ++m)
+          if (lane < words)
+            *reinterpret_cast<uint32_t*>(st + (warp + 8 * m) * ld + 3 * R + 2 * lane) = v[m];
+      } else {
+        const bf16* run = reinterpret_cast<const bf16*>(cbuf + off);
+        for (int r = warp; r < kMmaRows; r += kThreads / 32)
+          for (int e = lane; e < A; e += 32)
+            st[r * ld + 3 * R + e] = r < nv ? run[r * A + e] : __float2bfloat16(0.f);
+      }
+    }
+    __syncthreads();
+    if (i + 1 < n) gather(next, s ^ 1, sh);
+
+    // the block on the warp's 16 rows; the residual x[t] from the rows'
+    // tap-c features, the output into their (dead) tap-m features, then out
+    // with 16-byte stores
+    const bf16* arow = st + (warp * 16 + (lane & 15)) * ld + (lane >> 4) * 8;
+    bf16* wrows = st + warp * 16 * ld;
+    mma_block_rows(
+        wg, ld, KP, wo, bg_s, bo_s, R, G2,
+        [&](int kc) { return arow + kc; },
+        [&](int rr, int o) {
+          const bf16* row = wrows + rr * ld + R + o;
+          return make_float2(to_f32(row[0]), to_f32(row[1]));
+        },
+        [&](int rr, int o, float v0, float v1) {
+          *reinterpret_cast<__nv_bfloat162*>(wrows + rr * ld + o) =
+              __floats2bfloat162_rn(v0, v1);
+        });
+    __syncwarp();
+    for (int e = lane; e < 16 * 8; e += 32) {
+      const int rr = e >> 3, sg = e & 7, r = warp * 16 + rr;
+      if (sg * 8 < R && r < tl.nv)
+        *reinterpret_cast<uint4*>(y + (tl.dst_off + tl.u0(T_len) + r) * R + sg * 8) =
+            *reinterpret_cast<const uint4*>(st + r * ld + sg * 8);
+    }
+    if (i + 2 < n) shifts_of(tiles(i + 2), sh);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+}
+
+// ---- the ffma walk (f32, and bf16 widened) --------------------------------
+//
+// True f32, FFMA, the products summed in the order of the features with the
+// bias first. A tile is 256 rows; lane l of every warp owns rows l + 32i
+// (i < 8) and warp w the gate pairs 8w..8w+7, a-half and b-half: 128
+// accumulators, and per four features 8 row loads and 16 uniform weight
+// loads (128-bit) feed 512 FMAs. The input features come in chunks of 16
+// (cp.async, two stages; the next tile's first chunk while this tile's last
+// computes); z goes through shared memory for the out product.
+
+constexpr int kFfRows = 256;  // rows of a tile: 32 lanes x 8
+constexpr int kFfKC = 16;     // input features per chunk
+constexpr int kFfLd = kFfKC + 4;  // 80-byte stage rows
+constexpr int kZLd = kMaxHalf + 4;  // z rows, 272 bytes
+constexpr int kZRows = 128;   // z rows per pass (half a tile)
+constexpr int kFfRowsAThread = kFfRows / (kThreads / 4);  // gathered rows
+
+__host__ __device__ constexpr int ff_kw(int R, int A) { return (3 * R + A + 3) & ~3; }
+
+inline size_t ffma_smem_bytes(int R, int A) {
+  return ((size_t)2 * kFfRows * kFfLd + (size_t)kZRows * kZLd +
+          (size_t)kGateRows * ff_kw(R, A) + (size_t)kMaxHalf * kMaxR +
+          kGateRows + kMaxR) * sizeof(float);
+}
+
+template <typename T, bool kAdaptive, bool kCross, typename Tiles>
+__device__ __forceinline__ void ffma_walk(const PdWalk& w,
+                                          const PdBlockWeights& wt,
+                                          const Tiles& tiles, int n,
+                                          float* smem) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  const int T_len = w.T, R = w.R, A = w.A, G2 = w.G2;
+  const int KIN = 3 * R + A, KW = ff_kw(R, A);
+  const int n_chunks = (KIN + kFfKC - 1) / kFfKC;
+  float* stages = smem;                        // [2][kFfRows][kFfLd]
+  float* z_s = stages + 2 * kFfRows * kFfLd;   // [kZRows][kZLd]
+  float* wg = z_s + kZRows * kZLd;             // [kGateRows][KW]
+  float* wo = wg + kGateRows * KW;             // [k][o], 64 x 64
+  float* bg_s = wo + kMaxHalf * kMaxR;
+  float* bo_s = bg_s + kGateRows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const T* x = static_cast<const T*>(w.src);
+  const T* c = static_cast<const T*>(w.c);
+  T* y = static_cast<T*>(w.dst);
+
+  // the side taps' source rows (m, p) of the thread's rows of a tile, from
+  // row 0 of the tile's utterance b (past T: a later utterance's), once a
+  // tile (-1 reads zero)
+  auto side_rows = [&](const PdTile& tl, int (&sm)[kFfRowsAThread],
+                       int (&sp)[kFfRowsAThread]) {
+#pragma unroll
+    for (int m = 0; m < kFfRowsAThread; ++m) {
+      const int r = (tid >> 2) + (kThreads / 4) * m;
+      sm[m] = sp[m] = -1;
+      if (r < tl.nv) {
+        int b, t;
+        tile_row<kCross>(tl, r, T_len, b, t);
+        const int lo = side_row<kAdaptive>(w, b, t, false);
+        const int hi = side_row<kAdaptive>(w, b, t, true);
+        sm[m] = lo >= 0 ? (b - tl.b) * T_len + lo : -1;
+        sp[m] = hi >= 0 ? (b - tl.b) * T_len + hi : -1;
+      }
+    }
+  };
+  // chunk ch of a tile into stage s: thread copies 4-feature segment
+  // tid % 4 of row tid / 4 + 64m (its side taps' rows m_src, p_src): one
+  // 16-byte copy where the four features are one tap's, two 8-byte ones
+  // where they are c's, in f32; the caller commits
+  auto gather_row = [&](const PdTile& tl, int ch, int s, int m, int m_src,
+                        int p_src) {
+    // rows from row 0 of the tile's utterance b
+    const T* xb = x + (tl.src_off + (long long)tl.b * T_len) * R;
+    const T* cb = c + (size_t)tl.b * T_len * A;
+    const int f0 = ch * kFfKC + (tid & 3) * 4;  // first feature of the segment
+    const int tap = f0 < 3 * R ? f0 / R : 3;
+    const int r = (tid >> 2) + (kThreads / 4) * m, t = tl.t0 + r;
+    const bool ok_row = r < tl.nv;
+    float* dst = stages + s * kFfRows * kFfLd + r * kFfLd + (tid & 3) * 4;
+    auto tap_src = [&](int tp) {
+      return !ok_row ? -1 : tp == 0 ? m_src : tp == 1 ? t : p_src;
+    };
+    if constexpr (kF32) {
+      if (tap < 3 && R % 4 == 0) {
+        const int src = tap_src(tap);
+        cp_async16(dst, src >= 0 ? xb + (size_t)src * R + (f0 - tap * R) : x,
+                   src >= 0);
+        return;
+      }
+      if (tap == 3 && R % 2 == 0 && A % 2 == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int f = f0 + 2 * h;
+          const bool ok = f < KIN && ok_row;
+          cp_async8(dst + 2 * h, ok ? cb + (size_t)t * A + (f - 3 * R) : c, ok);
+        }
+        return;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int f = f0 + e;
+      const T* from = nullptr;
+      if (f < 3 * R) {
+        const int tp = f / R, sr = tap_src(tp);
+        if (sr >= 0) from = xb + (size_t)sr * R + (f - tp * R);
+      } else if (f < KIN && ok_row) {
+        from = cb + (size_t)t * A + (f - 3 * R);
+      }
+      if constexpr (kF32) cp_async4(dst + e, from != nullptr ? from : c, from != nullptr);
+      else dst[e] = from != nullptr ? to_f32(*from) : 0.f;
+    }
+  };
+
+  // the first chunk in flight while the weights come in
+  int sm[kFfRowsAThread], sp[kFfRowsAThread];
+  {
+    const PdTile t0 = tiles(0);
+    side_rows(t0, sm, sp);
+#pragma unroll
+    for (int m = 0; m < kFfRowsAThread; ++m) gather_row(t0, 0, 0, m, sm[m], sp[m]);
+  }
+  cp_async_commit();
+  stage_weights<T, float, false>(wt, R, A, G2, KW, KW, kMaxR, wg, wo, bg_s,
+                                 bo_s);
+  cp_async_wait<0>();
+  __syncthreads();  // the weights and biases, before the accumulators start
+
+  const float* wa_row = wg + (8 * warp) * KW;             // a-half rows
+  const float* wb_row = wg + (kMaxHalf + 8 * warp) * KW;  // b-half rows
+  int s = 0;
+  for (int i = 0; i < n; ++i) {
+    const PdTile tl = tiles(i);
+    float acc_a[8][8], acc_b[8][8];  // [row][pair jj]
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float ba = bg_s[8 * warp + jj], bb = bg_s[kMaxHalf + 8 * warp + jj];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        acc_a[r][jj] = ba;
+        acc_b[r][jj] = bb;
+      }
+    }
+    for (int ch = 0; ch < n_chunks; ++ch, s ^= 1) {
+      // the next chunk: this tile's, or the next tile's first
+      if (ch + 1 < n_chunks || i + 1 < n) {
+        const bool same = ch + 1 < n_chunks;
+        const PdTile tn = same ? tl : tiles(i + 1);
+        if (!same) side_rows(tn, sm, sp);
+#pragma unroll
+        for (int m = 0; m < kFfRowsAThread; ++m)
+          gather_row(tn, same ? ch + 1 : 0, s ^ 1, m, sm[m], sp[m]);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* st = stages + s * kFfRows * kFfLd + lane * kFfLd;
+      const int k0 = ch * kFfKC;
+      const int nq = min(kFfKC, KW - k0) / 4;
+      for (int kq = 0; kq < nq; ++kq) {
+        float4 a[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          a[r] = *reinterpret_cast<const float4*>(st + r * 32 * kFfLd + kq * 4);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float4 wa = *reinterpret_cast<const float4*>(wa_row + jj * KW + k0 + kq * 4);
+          const float4 wb = *reinterpret_cast<const float4*>(wb_row + jj * KW + k0 + kq * 4);
+          // each accumulator's four features in order, 16 FMAs apart
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            acc_a[r][jj] = fmaf(a[r].x, wa.x, acc_a[r][jj]);
+            acc_b[r][jj] = fmaf(a[r].x, wb.x, acc_b[r][jj]);
+          }
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            acc_a[r][jj] = fmaf(a[r].y, wa.y, acc_a[r][jj]);
+            acc_b[r][jj] = fmaf(a[r].y, wb.y, acc_b[r][jj]);
+          }
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            acc_a[r][jj] = fmaf(a[r].z, wa.z, acc_a[r][jj]);
+            acc_b[r][jj] = fmaf(a[r].z, wb.z, acc_b[r][jj]);
+          }
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            acc_a[r][jj] = fmaf(a[r].w, wa.w, acc_a[r][jj]);
+            acc_b[r][jj] = fmaf(a[r].w, wb.w, acc_b[r][jj]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // the gate, z rounded to the stream type; the out product in two
+    // passes of 128 rows: lanes 0-15 take output columns 4l.., lanes 16-31
+    // the next row, warp w rows 2w + (l >= 16) + 16i
+    const int oc = (lane & 15) * 4;
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int rq = 4 * pass + q;
+        float z[8];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          z[jj] = round_to<T>(gate(acc_a[rq][jj], acc_b[rq][jj]));
+        float4* zp = reinterpret_cast<float4*>(z_s + (lane + 32 * q) * kZLd + 8 * warp);
+        zp[0] = make_float4(z[0], z[1], z[2], z[3]);
+        zp[1] = make_float4(z[4], z[5], z[6], z[7]);
+      }
+      __syncthreads();
+      float out[8][4];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[r][e] = 0.f;
+      const float* zr = z_s + ((lane >> 4) + 2 * warp) * kZLd;
+      for (int k = 0; k < G2; k += 4) {
+        float4 w4[4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          w4[kk] = *reinterpret_cast<const float4*>(wo + (k + kk) * kMaxR + oc);
+        float4 z4[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          z4[r] = *reinterpret_cast<const float4*>(zr + 16 * r * kZLd + k);
+        // each accumulator's four k in order, 32 FMAs apart
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float zv = kk == 0 ? z4[r].x : kk == 1 ? z4[r].y
+                           : kk == 2 ? z4[r].z : z4[r].w;
+            out[r][0] = fmaf(zv, w4[kk].x, out[r][0]);
+            out[r][1] = fmaf(zv, w4[kk].y, out[r][1]);
+            out[r][2] = fmaf(zv, w4[kk].z, out[r][2]);
+            out[r][3] = fmaf(zv, w4[kk].w, out[r][3]);
+          }
+      }
+      // the residual x[t] of all eight rows first, then the outputs: a
+      // load after a store to y would wait for it
+      T res[8][4];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int rl = kZRows * pass + (lane >> 4) + 2 * warp + 16 * r;
+        const T* xr = x + (tl.src_off + tl.u0(T_len) + min(rl, tl.nv - 1)) * R;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) res[r][e] = xr[min(oc + e, R - 1)];
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int rl = kZRows * pass + (lane >> 4) + 2 * warp + 16 * r;
+        if (rl >= tl.nv) continue;
+        T* yr = y + (tl.dst_off + tl.u0(T_len) + rl) * R;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int o = oc + e;
+          if (o >= R) continue;
+          const float v = out[r][e] + bo_s[o];
+          yr[o] = from_f32<T>((v + to_f32(res[r][e])) * kSqrtHalf);
+        }
+      }
+      __syncthreads();
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ---- the wide walk (any widths; f32, and bf16 widened) --------------------
+//
+// For blocks whose gate weight the walks above cannot hold in shared memory
+// (R > 64, G > 128 or 3R + A > 272; the JAX kernels take every width). The
+// same arithmetic as ffma_walk: true f32 FFMA, the gate's features summed
+// in order with the bias first, z rounded to the stream type, the out
+// product's G/2 terms summed in order. A tile is 64 rows. The gate runs in
+// passes of 32 pairs (a thread: one pair, eight rows), each over chunks of
+// 32 features of the rows [x[m] | x[t] | x[p] | c] and the matching rows of
+// the gate weight, both staged in shared memory; a pass's z goes to the
+// block of threads' own 64 x G/2 rows of `zbuf` (device memory, L2 in
+// practice; z is already rounded to the stream type, so storing it there
+// changes no bit). The out product then runs in passes of 64 output
+// columns (a thread: one column, 16 rows) over chunks of 32 of z's columns
+// and Wo's rows. Nothing of the widths is held whole, so nothing bounds
+// them; the weights are read again for every tile, which makes this walk
+// slower than the two above at the widths both take.
+
+constexpr int kWdRows = 64;   // rows of a tile
+constexpr int kWdPairs = 32;  // gate pairs of a pass
+constexpr int kWdKC = 32;     // features (gate) or z columns (out) of a chunk
+constexpr int kWdOC = 64;     // output columns of a pass
+constexpr int kWdLd = kWdKC + 1;
+static_assert(2 * kWdPairs == kWdOC && kWdRows * kWdKC == 8 * kThreads &&
+                  kWdKC == 32 && kThreads == 256,
+              "the wide walk's thread map");
+
+inline size_t wide_smem_bytes() {
+  return (size_t)(kWdRows * kWdLd + kWdKC * kWdOC) * sizeof(float) +
+         (size_t)3 * kWdRows * sizeof(long long);
+}
+
+template <typename T, bool kAdaptive, bool kCross, typename Tiles>
+__device__ __forceinline__ void wide_walk(const PdWalk& w,
+                                          const PdBlockWeights& wt,
+                                          const Tiles& tiles, int n,
+                                          unsigned char* smem) {
+  const int T_len = w.T, R = w.R, A = w.A, G2 = w.G2, KIN = 3 * R + A;
+  float* in_s = reinterpret_cast<float*>(smem);  // [kWdRows][kWdLd]
+  float* w_s = in_s + kWdRows * kWdLd;           // [kWdKC][kWdOC]
+  long long* rows_s = reinterpret_cast<long long*>(w_s + kWdKC * kWdOC);  // [3][kWdRows]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const T* x = static_cast<const T*>(w.src);
+  const T* c = static_cast<const T*>(w.c);
+  T* y = static_cast<T*>(w.dst);
+  T* z = static_cast<T*>(w.zbuf) + (size_t)blockIdx.x * kWdRows * G2;
+  const T* wo = static_cast<const T*>(wt.wo);
+  const T* bo = static_cast<const T*>(wt.bo);
+
+  for (int i = 0; i < n; ++i) {
+    const PdTile tl = tiles(i);
+    const long long u0 = tl.u0(T_len);
+    // the flattened source row of each tap of the tile's rows (-1 reads
+    // zero); past nv every tap reads zero
+    if (tid < kWdRows) {
+      long long v[3] = {-1, -1, -1};
+      if (tid < tl.nv) {
+        int b, t;
+        tile_row<kCross>(tl, tid, T_len, b, t);
+        const int lo = side_row<kAdaptive>(w, b, t, false);
+        const int hi = side_row<kAdaptive>(w, b, t, true);
+        const long long row0 = (long long)b * T_len;
+        v[0] = lo >= 0 ? row0 + lo : -1;
+        v[1] = row0 + t;
+        v[2] = hi >= 0 ? row0 + hi : -1;
+      }
+      for (int tap = 0; tap < 3; ++tap) rows_s[tap * kWdRows + tid] = v[tap];
+    }
+    __syncthreads();
+
+    // the gate, a pass of 32 pairs at a time: lane = pair, rows warp + 8r
+    for (int j0 = 0; j0 < G2; j0 += kWdPairs) {
+      const int j = j0 + lane;
+      float acc_a[8], acc_b[8];
+      {
+        const float ba = j < G2 ? gate_bias<T>(wt, j) : 0.f;
+        const float bb = j < G2 ? gate_bias<T>(wt, G2 + j) : 0.f;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          acc_a[r] = ba;
+          acc_b[r] = bb;
+        }
+      }
+      for (int k0 = 0; k0 < KIN; k0 += kWdKC) {
+        // feature k0 + lane of rows warp + 8m, and feature k0 + (tid / 64
+        // + 4m) of gate columns tid % 64 (the a-half's 32, the b-half's)
+        float a[8], wv[8];
+        const int f = k0 + lane;
+        const int tap = f < 3 * R ? f / R : 3;
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const int r = warp + 8 * m;
+          float e = 0.f;
+          if (tap < 3) {
+            const long long src = rows_s[tap * kWdRows + r];
+            if (src >= 0) e = to_f32(x[(tl.src_off + src) * R + (f - tap * R)]);
+          } else if (f < KIN && r < tl.nv) {
+            e = to_f32(c[(u0 + r) * A + (f - 3 * R)]);
+          }
+          a[m] = e;
+        }
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const int col = tid % kWdOC, fw = k0 + tid / kWdOC + 4 * m;
+          const int jj = j0 + col % kWdPairs;
+          const long long gcol = (col < kWdPairs ? 0 : G2) + jj;
+          float e = 0.f;
+          if (jj < G2 && fw < KIN) {
+            const int tp = fw < 3 * R ? fw / R : 3;
+            e = tp < 3 ? to_f32(static_cast<const T*>(wt.w[tp])[
+                             (fw - tp * R) * wt.w_si[tp] + gcol * wt.w_so[tp]])
+                       : to_f32(static_cast<const T*>(wt.wa)[
+                             (fw - 3 * R) * wt.wa_si + gcol * wt.wa_so]);
+          }
+          wv[m] = e;
+        }
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          in_s[(warp + 8 * m) * kWdLd + lane] = a[m];
+          w_s[(tid / kWdOC + 4 * m) * kWdOC + tid % kWdOC] = wv[m];
+        }
+        __syncthreads();
+        const int nk = min(kWdKC, KIN - k0);
+        for (int k = 0; k < nk; ++k) {
+          const float wa = w_s[k * kWdOC + lane];
+          const float wb = w_s[k * kWdOC + kWdPairs + lane];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float av = in_s[(warp + 8 * r) * kWdLd + k];
+            acc_a[r] = fmaf(av, wa, acc_a[r]);
+            acc_b[r] = fmaf(av, wb, acc_b[r]);
+          }
+        }
+        __syncthreads();
+      }
+      if (j < G2) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          z[(warp + 8 * r) * G2 + j] = from_f32<T>(gate(acc_a[r], acc_b[r]));
+      }
+    }
+    // this tile's z, stored by any thread, before the out product reads it
+    __threadfence_block();
+    __syncthreads();
+
+    // the out product, a pass of 64 columns at a time: column tid % 64,
+    // rows tid / 64 + 4r
+    for (int o0 = 0; o0 < R; o0 += kWdOC) {
+      const int o = o0 + tid % kWdOC, rq = tid / kWdOC;
+      float out[16];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) out[r] = 0.f;
+      for (int k0 = 0; k0 < G2; k0 += kWdKC) {
+        float zv[8], wv[8];
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const int r = warp + 8 * m, k = k0 + lane;
+          zv[m] = k < G2 ? to_f32(z[r * G2 + k]) : 0.f;
+          const int kw = k0 + rq + 4 * m;
+          wv[m] = kw < G2 && o < R ? to_f32(wo[kw * wt.wo_si + o * wt.wo_so]) : 0.f;
+        }
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          in_s[(warp + 8 * m) * kWdLd + lane] = zv[m];
+          w_s[(rq + 4 * m) * kWdOC + tid % kWdOC] = wv[m];
+        }
+        __syncthreads();
+        const int nk = min(kWdKC, G2 - k0);
+        for (int k = 0; k < nk; ++k) {
+          const float wk = w_s[k * kWdOC + tid % kWdOC];
+#pragma unroll
+          for (int r = 0; r < 16; ++r)
+            out[r] = fmaf(in_s[(rq + 4 * r) * kWdLd + k], wk, out[r]);
+        }
+        __syncthreads();
+      }
+      if (o < R) {
+        const float b = to_f32(bo[o]);
+        const T* xr = x + (tl.src_off + u0) * R + o;
+        T* yr = y + (tl.dst_off + u0) * R + o;
+        float res[16];
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const int rl = rq + 4 * r;
+          res[r] = rl < tl.nv ? to_f32(xr[(long long)rl * R]) : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const int rl = rq + 4 * r;
+          if (rl < tl.nv)
+            yr[(long long)rl * R] = from_f32<T>((out[r] + b + res[r]) * kSqrtHalf);
+        }
+      }
+    }
+    // the tile's z and rows_s read, before the next tile writes them
+    __syncthreads();
+  }
+}
+
+// The shared-memory size a kernel asks for, or an error for one above what
+// a block may use.
+template <typename Kern>
+int prepare(Kern kern, size_t smem) {
+  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace

@@ -20,12 +20,14 @@ dilation factors are frame-constant (`pd_frame_hop` > 0, T % hop == 0), and
 every (K=3) fixed block runs `pd_fixed_block`, or, where chaining is on
 (`FASTSVC_PD_CHAIN` >= 2, see `chain_max`), a run of them runs as one
 `pd_fixed_chain`, grouped by the JAX package's rule; each launches its CUDA
-kernel on a CUDA tensor and takes its plain version on a CPU one. With
-per-sample dilation factors an adaptive block gathers per sample
-(`pd_indexing`) and
-runs the same block math as the plain version (`ops.pd_block.
-adaptive_block_gathered`). The reference's skip convs are dead computation
-there and here: they keep their parameters and are never applied.
+kernel on a CUDA tensor (at any widths: `ops.pd_block.block_plan` picks
+the walk) and takes its plain version on a CPU one; a run longer than the
+chain kernel takes (MAX_CHAIN) runs block by block, with the same bits.
+With per-sample dilation factors an adaptive block gathers per sample
+(`pd_indexing`) and runs the same block math as the plain version
+(`ops.pd_block.adaptive_block_gathered`). The reference's skip convs are
+dead computation there and here: they keep their parameters and are never
+applied.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from torch import nn
 
 from ..ops.conv import conv_weight, edge_pad1d
 from ..ops.pd_block import (
+    MAX_CHAIN,
     adaptive_block_gathered,
     fixed_chain_offsets,
     frame_shifts,
@@ -194,7 +197,8 @@ class ResidualBlocks(nn.Module):
         32-aligned halo (`fixed_chain_offsets`) stays within
         `chain_halo_max()` and T >= 2 halo, kept when it holds 2 or more;
         ("fixed", i) and ("adaptive", i) for the rest. Runs need T % 32 ==
-        0, as in the JAX package, so both chain the same runs."""
+        0, as in the JAX package, so both chain the same runs. A run longer
+        than the chain kernel takes (MAX_CHAIN) goes block by block."""
         n_max = chain_max() if T % 32 == 0 else 1
         halo_max = chain_halo_max()
         fixed = [isinstance(b, FixedBlock) for b in self.conv_dilated]
@@ -214,8 +218,11 @@ class ResidualBlocks(nn.Module):
                         break
                     run.append(j)
                     j += 1
-            if len(run) >= 2:
+            if 2 <= len(run) <= MAX_CHAIN:
                 steps.append(("chain", run))
+                i = run[-1] + 1
+            elif run:
+                steps += [("fixed", k) for k in run]
                 i = run[-1] + 1
             else:
                 steps.append(("fixed", i))

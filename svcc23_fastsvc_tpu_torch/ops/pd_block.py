@@ -16,7 +16,7 @@ before the out product, and y is cast to x's type.
 `pd_fixed_chain` applies K fixed blocks back to back in one kernel, each
 stage reflect-padding its own input, as the blocks applied one after
 another do (each stage's output rounded to x's type, each stage on the
-variant the block kernels run at its widths: the same bits).
+block kernels' own code at its widths: the same bits).
 
 They replace the TPU kernels `svcc23_fastsvc_tpu/ops/pallas_pd_block.py::
 pd_adaptive_block`, `pd_fixed_block` and `pd_fixed_chain`; the CUDA
@@ -24,8 +24,11 @@ sources are `csrc/pd_block.cuh` (the block's math on a group of rows),
 `csrc/pd_block.cu` and `csrc/pd_chain.cu`, whose headers say how the TPU
 kernels' halo windows became per-row source indices and what bounds the
 kernels on the H100. Which of the block kernels' variants runs (tensor
-cores in bf16, FFMA otherwise) and its tile is `block_plan`, a function of
-dtype and widths alone that the C entries check.
+cores in bf16, FFMA otherwise, and a walk that streams the weights for
+widths past R 64, G 128 or 3R + A 272) and its tile is `block_plan`, a
+function of dtype and widths alone that the C entries check; `chain_plan`
+adds the chain's grid, the run of rows each block of threads takes and its
+scratch. Every width the JAX kernels take runs on the card.
 
 `params` follow the JAX package's block layout: {"convC", "convP",
 "convF", "aux", "out"} (adaptive) or {"conv", "aux", "out"} (fixed), each
@@ -49,11 +52,13 @@ from . import _build
 from .conv import reflect_pad1d
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the widths the mma and ffma walks hold (their whole gate weight in shared
+# memory); the wide walk takes the rest
 MAX_RESIDUAL = 64  # kMaxR in csrc/pd_block.cuh
 MAX_GATE = 128     # 2 * kMaxHalf
-MAX_FEATURES = 272  # kMaxFeatures in csrc/pd_block.cu: 3R + A at most
+MAX_FEATURES = 272  # kMaxFeatures in csrc/pd_block.cuh: 3R + A at most
 MAX_CHAIN = 16     # kMaxChain in csrc/pd_chain.cu
-MAX_CHAIN_REACH = 159  # kMaxReach: the sum of a chain's dilations
+_MAX_WIDTH = 1 << 20  # R, A and G the C entries take
 
 
 class _Weights(ctypes.Structure):
@@ -78,7 +83,7 @@ class _Args(ctypes.Structure):
         ("x", ctypes.c_void_p), ("c", ctypes.c_void_p),
         ("shifts", ctypes.c_void_p),
         ("wt", _Weights),
-        ("y", ctypes.c_void_p),
+        ("y", ctypes.c_void_p), ("zbuf", ctypes.c_void_p),
         ("B", ctypes.c_longlong), ("T", ctypes.c_longlong),
         ("R", ctypes.c_longlong), ("A", ctypes.c_longlong),
         ("G", ctypes.c_longlong), ("hop", ctypes.c_longlong),
@@ -94,10 +99,13 @@ class _ChainArgs(ctypes.Structure):
     _fields_ = [
         ("x", ctypes.c_void_p), ("c", ctypes.c_void_p),
         ("y", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p), ("zbuf", ctypes.c_void_p),
         ("B", ctypes.c_longlong), ("T", ctypes.c_longlong),
         ("R", ctypes.c_longlong), ("A", ctypes.c_longlong),
         ("G", ctypes.c_longlong), ("K", ctypes.c_longlong),
-        ("variant", ctypes.c_longlong),
+        ("variant", ctypes.c_longlong), ("tile_rows", ctypes.c_longlong),
+        ("n_blocks", ctypes.c_longlong), ("seg_rows", ctypes.c_longlong),
+        ("region_rows", ctypes.c_longlong),
         ("dil", ctypes.c_longlong * MAX_CHAIN),
         ("blk", _Weights * MAX_CHAIN),
     ]
@@ -109,8 +117,8 @@ _CHAIN_ARGTYPES = [ctypes.POINTER(_ChainArgs), ctypes.c_void_p]
 # The block kernels' plan: variant ids of csrc/pd_block.cuh's enum, and the
 # rows of a tile each variant's instance is compiled for. The grid is
 # persistent: one block per SM of an H100, at most one per tile.
-BLOCK_VARIANTS = {"mma": 0, "ffma": 1}
-_BLOCK_TILE_ROWS = {"mma": 128, "ffma": 256}
+BLOCK_VARIANTS = {"mma": 0, "ffma": 1, "wide": 2}
+_BLOCK_TILE_ROWS = {"mma": 128, "ffma": 256, "wide": 64}
 _SMS = 132
 _SMEM_BYTES = 232448  # shared memory a block may use on the H100
 
@@ -124,6 +132,13 @@ def _mma_smem_bytes(R: int, A: int) -> int:
             + 4 * (MAX_GATE + MAX_RESIDUAL) + ((128 * A * 2 + 31) & ~15))
 
 
+def _held(R: int, A: int, G: int) -> bool:
+    """Whether the mma and ffma walks hold a block of these widths: its
+    whole gate weight in shared memory, R <= 64, G <= 128 and 3R + A <= 272
+    (the vocoders here have 3R + A of 254-255)."""
+    return R <= MAX_RESIDUAL and G <= MAX_GATE and 3 * R + A <= MAX_FEATURES
+
+
 @functools.lru_cache(maxsize=None)
 def block_plan(dtype, B: int, T: int, R: int, A: int, G: int) -> dict:
     """The block kernels' variant, tile rows and grid for (B, T, R) x,
@@ -132,24 +147,56 @@ def block_plan(dtype, B: int, T: int, R: int, A: int, G: int) -> dict:
 
     bf16 with R a multiple of 8 runs on the tensor cores ("mma": the taps'
     rows come in as 16-byte copies) where its shared memory holds the
-    widths; f32, and bf16 otherwise, on the FFMA loop ("ffma"). Both hold
-    the block's whole gate weight in shared memory, which bounds the widths:
-    R <= 64, G <= 128 and 3R + A <= 272 (the vocoders here have 3R + A of
-    254-255; a block wider than that raises). The grid is the smaller of the
-    tile count and the SM count; block i takes tiles i, i + n_blocks, ...
-    and loads the block's weights once.
+    widths; f32, and bf16 otherwise, on the FFMA loop ("ffma"); widths
+    neither holds (`_held`) on the FFMA walk that streams the weights
+    ("wide", with `z_elems` of scratch for its gate outputs). Only R < 1,
+    A < 0, an odd G or widths past 2^20 raise. The grid is the smaller of
+    the tile count and the SM count; block i takes tiles i, i + n_blocks,
+    ... (mma and ffma load the block's weights once).
     """
-    if not (1 <= R <= MAX_RESIDUAL and 2 <= G <= MAX_GATE and G % 2 == 0
-            and A >= 0 and 3 * R + A <= MAX_FEATURES):
-        raise ValueError(f"the block kernels take R <= {MAX_RESIDUAL}, even G "
-                         f"<= {MAX_GATE} and 3R + A <= {MAX_FEATURES}, got R="
-                         f"{R} A={A} G={G}")
-    variant = "mma" if dtype == torch.bfloat16 and R % 8 == 0 \
-        and _mma_smem_bytes(R, A) <= _SMEM_BYTES else "ffma"
+    if not (1 <= R <= _MAX_WIDTH and 0 <= A <= _MAX_WIDTH
+            and 2 <= G <= _MAX_WIDTH and G % 2 == 0):
+        raise ValueError(f"the block kernels take R >= 1, A >= 0 and an even "
+                         f"G >= 2 (each up to 2^20), got R={R} A={A} G={G}")
+    if not _held(R, A, G):
+        variant = "wide"
+    elif dtype == torch.bfloat16 and R % 8 == 0 \
+            and _mma_smem_bytes(R, A) <= _SMEM_BYTES:
+        variant = "mma"
+    else:
+        variant = "ffma"
     rows = _BLOCK_TILE_ROWS[variant]
     tiles = B * -(-T // rows)
+    n_blocks = max(1, min(tiles, _SMS))
     return {"variant": variant, "tile_rows": rows, "tiles": tiles,
-            "n_blocks": max(1, min(tiles, _SMS))}
+            "n_blocks": n_blocks,
+            "z_elems": n_blocks * rows * (G // 2) if variant == "wide"
+            else 0}
+
+
+@functools.lru_cache(maxsize=None)
+def chain_plan(dtype, B: int, T: int, R: int, A: int, G: int,
+               dilations: tuple) -> dict:
+    """The chain kernel's plan: `block_plan`'s variant and tile rows (its
+    stages run the block kernels' walks), a grid of one block of threads per
+    SM (at most one per tile), the run of `seg_rows` of the flattened
+    (B * T) rows each takes, and the rows of each of its two scratch regions
+    (its run and the halo, sum(dilations) rows, on either side), and the
+    wide walk's z scratch. Up to MAX_CHAIN blocks, any dilations; widths
+    raise as in `block_plan`."""
+    if not 1 <= len(dilations) <= MAX_CHAIN:
+        raise ValueError(f"the chain kernel takes 1 to {MAX_CHAIN} blocks, "
+                         f"got {len(dilations)}")
+    bp = block_plan(dtype, B, T, R, A, G)
+    seg = -(-B * T // bp["n_blocks"])
+    n_blocks = -(-B * T // seg)  # every block of threads has rows
+    region = seg + 2 * sum(dilations)
+    return {"variant": bp["variant"], "tile_rows": bp["tile_rows"],
+            "n_blocks": n_blocks, "seg_rows": seg, "region_rows": region,
+            "scratch_rows": 2 * n_blocks * region if len(dilations) > 1
+            else 0,
+            "z_elems": n_blocks * bp["tile_rows"] * (G // 2)
+            if bp["variant"] == "wide" else 0}
 
 
 def pd_block_halo(dilation: int, fs: int, dense: int = 4,
@@ -290,12 +337,10 @@ def _cuda_args(name, x, c, parts):
         for t in (bo, *biases):
             if not t.is_contiguous():
                 raise ValueError(f"{name} needs contiguous biases")
-        R, G = x.shape[2], wa.shape[1]
-        if R > MAX_RESIDUAL or G > MAX_GATE:
-            raise ValueError(f"{name} kernel takes R <= {MAX_RESIDUAL} and "
-                             f"G <= {MAX_GATE}, got R={R} G={G}")
     if not (x.is_contiguous() and c.is_contiguous()):
         raise ValueError(f"{name} needs contiguous x and c")
+    if x.shape[0] * x.shape[1] >= 2 ** 31:
+        raise ValueError(f"{name} takes fewer than 2^31 rows")
 
 
 def _fill(wt, taps, wa, biases, wo, bo):
@@ -318,6 +363,12 @@ def _run(name, x, args, argtypes):
     _build.check(fn(ctypes.byref(args), _build.stream_handle(x.device)), full)
 
 
+def _zbuf(x, plan):
+    """The wide walk's scratch for its gate outputs (empty for the
+    others)."""
+    return torch.empty(plan["z_elems"], dtype=x.dtype, device=x.device)
+
+
 def _launch(name, x, c, parts, *, shifts=None, hop=0, dilation=0):
     """Fill PdBlockArgs with the plan and launch `name`_f32 or _bf16 on x's
     stream."""
@@ -331,8 +382,10 @@ def _launch(name, x, c, parts, *, shifts=None, hop=0, dilation=0):
     # allocations always qualify)
     if x.data_ptr() % 16 or c.data_ptr() % 16:
         raise ValueError(f"{name} needs x and c 16-byte aligned")
+    zbuf = _zbuf(x, plan)
     a = _Args()
     a.x, a.c, a.y = x.data_ptr(), c.data_ptr(), y.data_ptr()
+    a.zbuf = zbuf.data_ptr() if zbuf.numel() else None
     a.shifts = None if shifts is None else shifts.data_ptr()
     _fill(a.wt, *parts)
     a.B, a.T, a.R, a.A, a.G = B, T, R, *parts[1].shape
@@ -384,8 +437,8 @@ def pd_fixed_chain(x, c, params_list, *, dilations):
     """K fixed blocks back to back: (B, T, R) -> (B, T, R), block j at
     dilation dilations[j]. T must be at least twice the JAX kernel's chain
     halo (`fixed_chain_offsets`), as the JAX function requires; unlike it,
-    any T (not only multiples of 32) is taken. The card's kernel holds the
-    exact reach, sum(dilations) <= MAX_CHAIN_REACH, in shared memory."""
+    any T (not only multiples of 32) is taken. On the card up to MAX_CHAIN
+    blocks, at any widths and dilations."""
     dilations = tuple(int(d) for d in dilations)
     K = len(dilations)
     if K < 1 or len(params_list) != K:
@@ -401,26 +454,33 @@ def pd_fixed_chain(x, c, params_list, *, dilations):
                          f"halo ({2 * halo})")
     if x.device.type == "cpu":
         return pd_fixed_chain_plain(x, c, params_list, dilations=dilations)
-    if K > MAX_CHAIN or sum(dilations) > MAX_CHAIN_REACH:
+    if K > MAX_CHAIN:
         raise ValueError(f"pd_fixed_chain kernel takes up to {MAX_CHAIN} "
-                         f"blocks whose dilations sum to <= "
-                         f"{MAX_CHAIN_REACH}, got {dilations}")
+                         f"blocks, got {K}")
     _cuda_args("pd_fixed_chain", x, c, parts)
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
     B, _, R = x.shape
-    plan = block_plan(x.dtype, B, T, R, *parts[0][1].shape)
-    # the mma stages copy x's rows in 16-byte pieces
-    if x.data_ptr() % 16:
-        raise ValueError("pd_fixed_chain needs x 16-byte aligned")
+    A, G = parts[0][1].shape
+    if any(tuple(p[1].shape) != (A, G) for p in parts):
+        raise ValueError("pd_fixed_chain: the blocks' widths differ")
+    plan = chain_plan(x.dtype, B, T, R, A, G, dilations)
+    # the stages copy their input rows in 16-byte pieces
+    if x.data_ptr() % 16 or c.data_ptr() % 16:
+        raise ValueError("pd_fixed_chain needs x and c 16-byte aligned")
+    scratch = torch.empty((plan["scratch_rows"], R), dtype=x.dtype,
+                          device=x.device)
+    zbuf = _zbuf(x, plan)
     a = _ChainArgs()
     a.x, a.c, a.y = x.data_ptr(), c.data_ptr(), y.data_ptr()
-    a.B, a.T, a.R, a.A, a.G, a.K = B, T, R, *parts[0][1].shape, K
+    a.scratch = scratch.data_ptr() if scratch.numel() else None
+    a.zbuf = zbuf.data_ptr() if zbuf.numel() else None
+    a.B, a.T, a.R, a.A, a.G, a.K = B, T, R, A, G, K
     a.variant = BLOCK_VARIANTS[plan["variant"]]
+    a.tile_rows, a.n_blocks = plan["tile_rows"], plan["n_blocks"]
+    a.seg_rows, a.region_rows = plan["seg_rows"], plan["region_rows"]
     for j, (d, p) in enumerate(zip(dilations, parts)):
-        if tuple(p[1].shape) != (a.A, a.G):
-            raise ValueError("pd_fixed_chain: the blocks' widths differ")
         a.dil[j] = d
         _fill(a.blk[j], *p)
     _run("pd_fixed_chain", x, a, _CHAIN_ARGTYPES)

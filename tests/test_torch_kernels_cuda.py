@@ -19,11 +19,13 @@ from svcc23_fastsvc_tpu_torch.models.fastsvc import FastSVCGenerator
 from svcc23_fastsvc_tpu_torch.models.hnusfgan import HNUSFGANGenerator
 from svcc23_fastsvc_tpu_torch.ops import _build
 from svcc23_fastsvc_tpu_torch.ops import conv as conv_mod
+from svcc23_fastsvc_tpu_torch.ops import down_chain as dc_mod
 from svcc23_fastsvc_tpu_torch.ops import fused_conv as fc_mod
 from svcc23_fastsvc_tpu_torch.ops import pd_block as pb_mod
 from svcc23_fastsvc_tpu_torch.ops.down_chain import (
     down_chain_fwd,
     down_chain_fwd_plain,
+    down_plan,
     set_down_chain_mode,
 )
 from svcc23_fastsvc_tpu_torch.ops.fused_conv import (
@@ -36,6 +38,7 @@ from svcc23_fastsvc_tpu_torch.ops.fused_conv import (
 )
 from svcc23_fastsvc_tpu_torch.ops.pd_block import (
     block_plan,
+    chain_plan,
     pd_adaptive_block,
     pd_adaptive_block_plain,
     pd_block_halo,
@@ -382,6 +385,8 @@ ADAPTIVE_CASES = [
     (2, 960, 16, 32, 10, 160, 1, "any", False),  # negative and int32 extremes
     (2, 3200, 64, 128, 63, 160, 2, (0, 60), True),  # odd aux: c by elements
     (1, 1600, 12, 24, 10, 160, 1, (0, 40), False),  # R % 8: bf16 on ffma
+    (2, 1600, 64, 128, 96, 160, 2, (0, 60), True),  # 3R + A = 288: wide
+    (1, 1000, 72, 160, 7, 100, 1, "any", False),  # R 72, G 160: wide
 ]
 
 
@@ -417,6 +422,9 @@ FIXED_CASES = [
     (2, 1000, 64, 128, 63, 3, True),     # odd aux (B02 features: 63)
     (1, 700, 12, 24, 10, 5, False),      # R % 8: bf16 on ffma
     (1, 900, 64, 128, 80, 2, True),      # 3R + A = 272: bf16 on ffma
+    (1, 900, 64, 128, 81, 2, True),      # 3R + A = 273: the wide walk
+    (2, 1000, 64, 160, 62, 7, True),     # G = 160: wide
+    (1, 333, 130, 300, 15, 100, False),  # R, G past both chunks: wide
 ]
 
 
@@ -491,15 +499,17 @@ def test_bf16_block_gate_is_f32_at_large_negative_b(cuda, kind):
 
 
 def test_pd_block_entry_refuses_a_plan_no_instance_takes(cuda):
-    """The C entry checks the plan: an unknown tile or an mma plan in f32
-    returns a CUDA error before any launch."""
+    """The C entry checks the plan: an unknown tile, an mma plan in f32 or a
+    grid with more blocks of threads than tiles (640 rows are 3 tiles of
+    256) returns a CUDA error before any launch."""
     x, c = (t.to(cuda) for t in _block_inputs(1, 640, 64, 62, seed=4))
     params = _to(_block_weights("fixed", 64, 128, 62, 4, False), cuda,
                  torch.float32)
     parts = pb_mod._check_fixed(x, c, params)
     y = torch.empty_like(x)
     fn = _build.kernel("pd_fixed_block_f32", pb_mod._ARGTYPES)
-    for variant, rows in (("ffma", 128), ("mma", 128), ("mma", 256)):
+    for variant, rows in (("ffma", 128), ("mma", 128), ("mma", 256),
+                          ("ffma", 256)):
         a = pb_mod._Args()
         a.x, a.c, a.y, a.shifts = x.data_ptr(), c.data_ptr(), y.data_ptr(), None
         pb_mod._fill(a.wt, *parts)
@@ -508,24 +518,60 @@ def test_pd_block_entry_refuses_a_plan_no_instance_takes(cuda):
         a.variant, a.tile_rows = pb_mod.BLOCK_VARIANTS[variant], rows
         a.n_blocks = 5
         assert fn(ctypes.byref(a), _build.stream_handle(x.device)) != 0
-    # the chain's f32 entry refuses the tensor-core variant and an unknown
-    # one
+    # the wide walk without its z scratch, and the ffma walk at widths it
+    # does not hold (G 160)
+    wide = _to(_block_weights("fixed", 64, 160, 62, 4, False), cuda,
+               torch.float32)
+    zbuf = torch.empty(5 * 64 * 80, device=cuda)
+    for variant, rows, z in (("wide", 64, None), ("ffma", 256, zbuf)):
+        a = pb_mod._Args()
+        a.x, a.c, a.y, a.shifts = x.data_ptr(), c.data_ptr(), y.data_ptr(), None
+        a.zbuf = None if z is None else z.data_ptr()
+        pb_mod._fill(a.wt, *pb_mod._check_fixed(x, c, wide))
+        a.B, a.T, a.R, a.A, a.G, a.hop, a.n_frames, a.dil = 1, 640, 64, 62, \
+            160, 0, 0, 2
+        a.variant, a.tile_rows = pb_mod.BLOCK_VARIANTS[variant], rows
+        a.n_blocks = 2
+        assert fn(ctypes.byref(a), _build.stream_handle(x.device)) != 0
+    # the chain's f32 entry refuses the tensor-core variant, an unknown one,
+    # the ffma variant at the mma tile, scratch regions too short for the
+    # reach and a grid that leaves rows out
     chain = _build.kernel("pd_fixed_chain_f32", pb_mod._CHAIN_ARGTYPES)
-    for variant in (pb_mod.BLOCK_VARIANTS["mma"], 7):
+    plan = chain_plan(torch.float32, 1, 640, 64, 62, 128, (2, 4))
+    scratch = torch.empty((plan["scratch_rows"], 64), device=cuda)
+    for change in ({"variant": pb_mod.BLOCK_VARIANTS["mma"]},
+                   {"variant": 7}, {"tile_rows": 128},
+                   {"region_rows": plan["region_rows"] - 1},
+                   {"seg_rows": plan["seg_rows"] - 1}):
         a = pb_mod._ChainArgs()
         a.x, a.c, a.y = x.data_ptr(), c.data_ptr(), y.data_ptr()
-        a.B, a.T, a.R, a.A, a.G, a.K = 1, 640, 64, 62, 128, 1
-        a.variant, a.dil[0] = variant, 2
-        pb_mod._fill(a.blk[0], *parts)
+        a.scratch = scratch.data_ptr()
+        a.B, a.T, a.R, a.A, a.G, a.K = 1, 640, 64, 62, 128, 2
+        a.variant = pb_mod.BLOCK_VARIANTS[plan["variant"]]
+        for k in ("tile_rows", "n_blocks", "seg_rows", "region_rows"):
+            setattr(a, k, plan[k])
+        for k, v in change.items():
+            setattr(a, k, v)
+        for j, d in enumerate((2, 4)):
+            a.dil[j] = d
+            pb_mod._fill(a.blk[j], *parts)
         assert chain(ctypes.byref(a), _build.stream_handle(x.device)) != 0
 
 
 def test_pd_block_kernels_reject_a_gate_too_wide(cuda):
+    """A gate of 256 is past what the mma and ffma walks hold, as the JAX
+    kernels' is not: it runs on the wide walk and matches the plain
+    version; an odd gate, which no kernel takes, is still refused."""
     x, c = (t.to(cuda) for t in _block_inputs(1, 320, 64, 10, seed=0))
     params = _to(_block_weights("fixed", 64, 256, 10, 0, False), cuda,
                  torch.float32)
+    assert block_plan(torch.float32, 1, 320, 64, 10, 256)["variant"] == "wide"
+    _close(pd_fixed_block(x, c, params, dilation=1),
+           pd_fixed_block_plain(x, c, params, dilation=1), 2e-4)
+    odd = _to(_block_weights("fixed", 64, 255, 10, 0, False), cuda,
+              torch.float32)
     with pytest.raises(ValueError):
-        pd_fixed_block(x, c, params, dilation=1)
+        pd_fixed_block(x, c, odd, dilation=1)
 
 
 @pytest.mark.parametrize("folded", [True, False])
@@ -571,6 +617,14 @@ CHAIN_CASES = [
     (1, 1007, 16, 32, 10, (1, 2, 4), False),         # T not a multiple of 32
     (2, 960, 64, 128, 62, (2,), True),               # one block
     (1, 1500, 8, 16, 10, (64, 64), False),           # a long reach, 2 tiles
+    # reaches past 159 rows (FASTSVC_PD_CHAIN_HALO above its default),
+    # a run of MAX_CHAIN blocks, and runs of rows that cross utterances
+    (3, 2400, 64, 128, 62, (1, 2, 4, 8, 16, 32, 64, 128), True),
+    (2, 3072, 16, 32, 10, (1, 2, 4, 8, 16, 32, 64, 128, 256), False),
+    (2, 1056, 64, 128, 63, (1,) * 16, True),
+    (40, 320, 64, 128, 62, (1, 2, 4, 8, 16), True),
+    (2, 3200, 64, 128, 96, (1, 2, 4, 8, 16), True),  # 3R + A = 288: wide
+    (3, 700, 72, 160, 10, (1, 3), False),  # wide, runs across utterances
 ]
 
 
@@ -606,13 +660,32 @@ def test_pd_fixed_chain_kernel_gives_the_block_kernels_bits(cuda, dtype):
         want = pd_fixed_block(want, c, p, dilation=d)
     got = pd_fixed_chain(x, c, params, dilations=dils)
     assert torch.equal(got, want)
+    # and on the wide walk, at widths the other two do not hold
+    x, c = (t.to(cuda, dtype) for t in _block_inputs(2, 1500, 64, 96, seed=9))
+    params = _chain_weights(64, 128, 96, dils, True, cuda, dtype)
+    assert chain_plan(dtype, 2, 1500, 64, 96, 128, dils)["variant"] == "wide"
+    want = x
+    for p, d in zip(params, dils):
+        want = pd_fixed_block(want, c, p, dilation=d)
+    assert torch.equal(pd_fixed_chain(x, c, params, dilations=dils), want)
 
 
 def test_pd_fixed_chain_kernel_refuses_a_reach_too_long(cuda):
+    """The card's chain has no reach limit of its own: 160 rows of reach,
+    once past its shared memory, now run and give the blocks' bits. What
+    it refuses is the JAX function's rule (T at least twice the chain's
+    32-aligned halo) and runs longer than MAX_CHAIN."""
     x, c = (t.to(cuda) for t in _block_inputs(1, 960, 16, 10, seed=0))
     params = _chain_weights(16, 32, 10, (80, 80), False, cuda, torch.float32)
-    with pytest.raises(ValueError):  # 160 rows of reach > MAX_CHAIN_REACH
-        pd_fixed_chain(x, c, params, dilations=(80, 80))
+    want = x
+    for p in params:
+        want = pd_fixed_block(want, c, p, dilation=80)
+    assert torch.equal(pd_fixed_chain(x, c, params, dilations=(80, 80)), want)
+    with pytest.raises(ValueError, match=r"2 \* chain"):  # T < 2 x 192
+        pd_fixed_chain(x[:, :380], c[:, :380], params, dilations=(80, 80))
+    many = _chain_weights(16, 32, 10, (1,) * 17, False, cuda, torch.float32)
+    with pytest.raises(ValueError):  # 17 blocks > MAX_CHAIN
+        pd_fixed_chain(x, c, many, dilations=(1,) * 17)
 
 
 def _down_params(cin, C, seed, strided, device, dtype):
@@ -638,6 +711,9 @@ DOWN_CASES = [
     (2, 20, 8, 16, (1, 2, 4), False),     # T below 2 x the JAX halo
     (1, 5, 4, 24, (1, 2, 4), False),      # T below the reach
     (2, 300, 16, 40, (2, 3, 5), False),   # other dilations, C % 32 != 0
+    (8, 800, 96, 192, (1, 2, 4), True),   # the decode batch's last block
+    (2, 257, 192, 192, (8, 8, 16), False),  # the widest, the longest reach
+    (3, 130, 5, 12, (1, 2, 4), False),    # C % 8 != 0
 ]
 
 
@@ -660,6 +736,69 @@ def test_down_chain_kernel_rejects_a_strided_input(cuda):
     x = torch.zeros((64, 2, 24), device=cuda).transpose(0, 1)
     with pytest.raises(ValueError):
         down_chain_fwd(x, _down_params(24, 48, 0, False, cuda, torch.float32))
+
+
+def test_down_chain_entry_refuses_a_plan_no_instance_takes(cuda):
+    """The C entry checks the plan: the other dtype's variant, a tile past
+    what the variant holds, an unknown variant or no packed-weight scratch
+    returns a CUDA error before any launch."""
+    x = torch.zeros((2, 640, 24), device=cuda)
+    params = _down_params(24, 48, 0, False, cuda, torch.float32)
+    y = torch.empty((2, 640, 48), device=cuda)
+    plan = down_plan(torch.float32, 2, 640, 24, 48, (1, 2, 4))
+    wpack = torch.empty(dc_mod.pack_elems("ffma", 24, 48), device=cuda)
+    fn = _build.kernel("down_chain_fwd_f32", dc_mod._ARGTYPES)
+    top = dc_mod.max_tile("ffma", 24, 48, (1, 2, 4))
+    for variant, rows, scratch in (("mma", plan["tile_rows"], True),
+                                   ("ffma", top + 1, True), (5, 64, True),
+                                   ("ffma", plan["tile_rows"], False)):
+        a = dc_mod._Args()
+        a.x, a.y = x.data_ptr(), y.data_ptr()
+        a.wpack = wpack.data_ptr() if scratch else None
+        for i, name in enumerate(dc_mod._CONVS):
+            w = params[name]["w"]
+            a.w[i] = w.data_ptr()
+            a.w_sk[i], a.w_si[i], a.w_so[i] = w.stride()
+            a.b[i] = params[name]["b"].data_ptr()
+        a.B, a.T, a.Cin, a.C = 2, 640, 24, 48
+        for j, d in enumerate((1, 2, 4)):
+            a.dil[j] = d
+        a.variant = dc_mod.DOWN_VARIANTS.get(variant, variant)
+        a.tile_rows, a.n_blocks = rows, plan["n_blocks"]
+        assert fn(ctypes.byref(a), _build.stream_handle(x.device)) != 0
+    # the pack entry refuses the other dtype's layout and no destination
+    pack = _build.kernel("down_chain_pack_f32", dc_mod._ARGTYPES)
+    for variant, dest in (("mma", True), ("ffma", False)):
+        a = dc_mod._Args()
+        dc_mod._fill_weights(a, params)
+        a.wpack = wpack.data_ptr() if dest else None
+        a.Cin, a.C = 24, 48
+        a.variant = dc_mod.DOWN_VARIANTS[variant]
+        assert pack(ctypes.byref(a), _build.stream_handle(x.device)) != 0
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_down_chain_packs_a_set_of_weights_once(cuda, dtype, tol):
+    """The weights are packed on their first call and the copy is reused
+    while they stay unchanged: two calls launch one pack and two chains; a
+    weight changed in place (its version moves) is packed again, and the
+    result follows the new weight."""
+    r = np.random.default_rng(3)
+    x = torch.from_numpy(r.standard_normal((2, 300, 24)).astype(np.float32))
+    x = x.to(cuda, dtype)
+    params = _down_params(24, 48, 7, True, cuda, dtype)
+    before = (dc_mod.pack_weights.launches, down_chain_fwd.launches)
+    first = down_chain_fwd(x, params)
+    again = down_chain_fwd(x, params)
+    torch.cuda.synchronize()
+    assert (dc_mod.pack_weights.launches - before[0],
+            down_chain_fwd.launches - before[1]) == (1, 2)
+    assert torch.equal(first, again)
+    params["conv2"]["w"].mul_(0.5)
+    got = down_chain_fwd(x, params)
+    torch.cuda.synchronize()
+    assert dc_mod.pack_weights.launches - before[0] == 2
+    _close(got, down_chain_fwd_plain(x, params), tol)
 
 
 def test_generator_with_the_down_chain_on_the_card_matches_the_cpu(cuda):
@@ -713,6 +852,85 @@ def test_vocoder_with_chains_on_the_card_matches_the_cpu(cuda, monkeypatch):
         got = model.to(cuda)(*(t.to(cuda) for t in ins))
         torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(counters, before)] == [4, 2, 1]
+    for a, b in zip(got, want):
+        assert (a.cpu() - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+
+
+def _wide_vocoder(R, G, A, generator):
+    return HNUSFGANGenerator(
+        harmonic_params=dict(blockA=2, cycleA=2, blockF=0, cycleF=0),
+        noise_params=dict(blockA=0, cycleA=0, blockF=2, cycleF=2),
+        filter_params=dict(blockA=0, cycleA=0, blockF=2, cycleF=1),
+        residual_channels=R, gate_channels=G, skip_channels=R,
+        aux_channels=A, upsample_scales=(5, 4, 2), pd_frame_hop=40,
+        generator=generator).eval().fold_weight_norm_()
+
+
+@pytest.mark.parametrize("chain,launches", [("0", [2, 4, 0]),
+                                            ("5", [2, 0, 2])])
+@pytest.mark.parametrize("R,G,A", [(64, 128, 96), (64, 160, 62)])
+def test_vocoder_wider_than_the_shared_walks_on_the_card_matches_the_cpu(
+        cuda, monkeypatch, R, G, A, chain, launches):
+    """3R + A = 288 > 272, or G = 160 > 128: the JAX vocoder runs these
+    widths, so the port's does too: every block and chain launches its
+    kernel on the wide walk (two adaptive blocks and four fixed ones, or
+    the fixed ones as two chains with FASTSVC_PD_CHAIN=5)."""
+    monkeypatch.setenv("FASTSVC_PD_CHAIN", chain)
+    monkeypatch.delenv("FASTSVC_PD_CHAIN_HALO", raising=False)
+    model = _wide_vocoder(R, G, A, torch.Generator().manual_seed(5))
+    r = np.random.default_rng(6)
+    B, Tf, hop = 2, 32, 40
+    assert block_plan(torch.float32, B, Tf * hop, R, A, G)["variant"] == \
+        "wide"
+    f0 = r.uniform(80, 400, (B, Tf))
+    d = np.repeat(8000 / (f0 * 4), hop, axis=1).astype(np.float32)
+    ins = [torch.from_numpy(a) for a in (
+        (0.1 * r.standard_normal((B, Tf * hop, 2))).astype(np.float32),
+        r.standard_normal((B, Tf + 4, A)).astype(np.float32), d)]
+    counters = (pd_adaptive_block, pd_fixed_block, pd_fixed_chain)
+    with torch.no_grad():
+        want = model(*ins)
+        before = [k.launches for k in counters]
+        got = model.to(cuda)(*(t.to(cuda) for t in ins))
+        torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == launches
+    for a, b in zip(got, want):
+        assert (a.cpu() - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+
+
+def test_vocoder_chain_past_the_old_reach_on_the_card_matches_the_cpu(
+        cuda, monkeypatch):
+    """FASTSVC_PD_CHAIN=10 and FASTSVC_PD_CHAIN_HALO=512 group the filter
+    cycle (1, 2, ..., 128) into one run of 8 blocks, 255 rows of reach (past
+    the old kernel's 159): it runs as one chain on the card, equal to the
+    same module on the CPU."""
+    monkeypatch.setenv("FASTSVC_PD_CHAIN", "10")
+    monkeypatch.setenv("FASTSVC_PD_CHAIN_HALO", "512")
+    model = HNUSFGANGenerator(
+        harmonic_params=dict(blockA=2, cycleA=2, blockF=0, cycleF=0),
+        noise_params=dict(blockA=0, cycleA=0, blockF=2, cycleF=2),
+        filter_params=dict(blockA=0, cycleA=0, blockF=10, cycleF=1),
+        residual_channels=16, gate_channels=32, skip_channels=16,
+        aux_channels=10, upsample_scales=(5, 4, 2), pd_frame_hop=40,
+        generator=torch.Generator().manual_seed(7)).eval().fold_weight_norm_()
+    r = np.random.default_rng(8)
+    B, Tf, hop = 2, 40, 40
+    f0 = r.uniform(80, 400, (B, Tf))
+    d = np.repeat(8000 / (f0 * 4), hop, axis=1).astype(np.float32)
+    ins = [torch.from_numpy(a) for a in (
+        (0.1 * r.standard_normal((B, Tf * hop, 2))).astype(np.float32),
+        r.standard_normal((B, Tf + 4, 10)).astype(np.float32), d)]
+    plan = model.filter_network.plan(Tf * hop)
+    assert plan[0] == ("chain", list(range(8)))
+    counters = (pd_adaptive_block, pd_fixed_chain, pd_fixed_block)
+    with torch.no_grad():
+        want = model(*ins)
+        before = [k.launches for k in counters]
+        got = model.to(cuda)(*(t.to(cuda) for t in ins))
+        torch.cuda.synchronize()
+    # the noise net's (1, 2) is a chain too; the filter net's last two
+    # blocks (256, 512) stay alone
+    assert [k.launches - b for k, b in zip(counters, before)] == [2, 2, 2]
     for a, b in zip(got, want):
         assert (a.cpu() - b).abs().max().item() <= 1e-3 * b.abs().max().item()
 
@@ -845,8 +1063,9 @@ def test_fused_conv_backward_entry_refuses_a_plan_no_instance_takes(cuda):
 
 
 def test_mma_instances_run_on_the_tensor_cores(cuda):
-    """The bf16 mma instances of the fused-conv backward (#6) and of the
-    gated blocks (#8, #10) hold HMMA instructions in their SASS."""
+    """The bf16 mma instances of the fused-conv backward (#6), the gated
+    blocks (#8, #10), the chain (#9) and the down chain (#7) hold HMMA
+    instructions in their SASS."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
         pytest.skip("the toolkit has no cuobjdump")
@@ -856,14 +1075,17 @@ def test_mma_instances_run_on_the_tensor_cores(cuda):
     for ln in out.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :", 1)[1].strip()
-            fn = name if ("fused_bwd_mma" in name
-                          or "pd_block_mma" in name) else None
+            fn = name if any(k in name for k in (
+                "fused_bwd_mma", "pd_block_mma", "pd_chain_mma",
+                "down_chain_mma")) else None
             if fn is not None:
                 counts[fn] = 0
         elif fn is not None and "HMMA" in ln:
             counts[fn] += 1
     assert sum("fused_bwd_mma" in k for k in counts) == 2
     assert sum("pd_block_mma" in k for k in counts) == 2
+    assert sum("pd_chain_mma" in k for k in counts) == 1
+    assert sum("down_chain_mma" in k for k in counts) == 2
     assert all(n > 0 for n in counts.values()), counts
 
 

@@ -7,7 +7,10 @@ G 32, A 10, T 3200); `ResidualBlocks`' grouping of fixed blocks into chains
 to the JAX `ResidualBlocks.apply` under the same FASTSVC_PD_CHAIN and
 FASTSVC_PD_CHAIN_HALO (its kernel calls replaced by recorders); and a small
 generator with chaining on to the JAX generator under
-`set_pallas_pd_mode("1")`. Inputs are made with numpy from a seed.
+`set_pallas_pd_mode("1")`. The plan's routing: a run past the old kernel's
+159-row reach stays one chain, a run longer than MAX_CHAIN goes block by
+block, and widths the kernels refuse run plain (a generator at them held
+to JAX's XLA path). Inputs are made with numpy from a seed.
 """
 
 import jax
@@ -169,6 +172,7 @@ def _port_plan(nets, T, hop):
     ("0", None, 24000, RECIPE),
     ("1", None, 24000, RECIPE),
     ("five", None, 24000, RECIPE),
+    ("10", "512", 24000, RECIPE),  # (1, .., 128): 255 rows of reach
 ])
 def test_grouping_matches_jax(monkeypatch, chain, halo, T, nets):
     for name, value in (("FASTSVC_PD_CHAIN", chain),
@@ -183,6 +187,94 @@ def test_grouping_matches_jax(monkeypatch, chain, halo, T, nets):
     assert got == want
     if chain in (None, "0", "1", "five") or T in (32, 3201):
         assert not any(kind == "chain" for kind, _ in got)
+
+
+def _set_chain_env(monkeypatch, chain, halo):
+    for name, value in (("FASTSVC_PD_CHAIN", chain),
+                        ("FASTSVC_PD_CHAIN_HALO", halo)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+
+
+def test_a_run_past_the_old_reach_is_one_chain_with_the_blocks_bits(
+        monkeypatch):
+    """FASTSVC_PD_CHAIN=10 and FASTSVC_PD_CHAIN_HALO=512 make the JAX
+    grouping form a filter-cycle run (1, 2, .., 128), 255 rows of reach,
+    past the 159 the card's chain kernel once held: the plan keeps it as one
+    chain (the kernel now takes any reach), and the chain equals the blocks
+    one after another."""
+    _set_chain_env(monkeypatch, "10", "512")
+    plan = _port_plan(RECIPE[2:], 24000, 160)
+    assert plan[0] == ("chain", (1, 2, 4, 8, 16, 32, 64, 128))
+    assert sum(plan[0][1]) == 255
+    dils = (1, 2, 4, 8, 16, 32, 64, 128)
+    ps, x, c = _chain_case(dils, 800, jnp.float32, seed=3)
+    params = _port(ps, torch.float32)
+    x, c = _t(x), _t(c)
+    want = x
+    for p, d in zip(params, dils):
+        want = pd_block.pd_fixed_block(want, c, p, dilation=d)
+    got = pd_block.pd_fixed_chain(x, c, params, dilations=dils)
+    assert torch.equal(got, want)
+
+
+def test_runs_longer_than_the_chain_kernel_go_block_by_block(monkeypatch):
+    """With FASTSVC_PD_CHAIN=30 and a halo budget past every reach, JAX
+    chains the filter net's 30 blocks in one run; the port's plan runs a
+    run longer than MAX_CHAIN (16) as its blocks, in the same order (the
+    same bits, pd_block.cuh's shared walks)."""
+    _set_chain_env(monkeypatch, "30", "100000")
+    want = _recorded_jax_plan(monkeypatch, RECIPE[2:], 24000, 160)
+    dils = [2 ** (i % 10) for i in range(30)]
+    assert want == [("chain", tuple(dils))]
+    assert _port_plan(RECIPE[2:], 24000, 160) == [("fixed", d) for d in dils]
+
+
+@pytest.mark.parametrize("R,G,A", [(64, 128, 96), (64, 160, 62)])
+def test_widths_past_the_shared_walks_take_the_wide_walk_and_match_jax(
+        monkeypatch, R, G, A):
+    """3R + A = 288 > 272, or G = 160 > 128: the mma and ffma walks hold no
+    such block, so the kernels' plan takes the wide walk in both dtypes and
+    the vocoder's plan chains and launches as at any width; the port's
+    generator at these widths matches the JAX one, which runs them on XLA
+    off the TPU."""
+    _set_chain_env(monkeypatch, "5", None)
+    rb = thn.ResidualBlocks(0, 0, 5, 5, residual_channels=R, gate_channels=G,
+                            aux_channels=A)
+    assert rb.plan(24000) == [("chain", [0, 1, 2, 3, 4])]
+    for dtype in (torch.float32, torch.bfloat16):
+        assert pd_block.block_plan(dtype, 8, 24000, R, A, G)["variant"] \
+            == "wide"
+        assert pd_block.chain_plan(dtype, 8, 24000, R, A, G,
+                                   (1,) * 5)["variant"] == "wide"
+    nets = dict(
+        harmonic_params=dict(blockA=2, cycleA=2, blockF=0, cycleF=0,
+                             cascade_mode=0),
+        noise_params=dict(blockA=0, cycleA=0, blockF=2, cycleF=2,
+                          cascade_mode=0),
+        filter_params=dict(blockA=0, cycleA=0, blockF=2, cycleF=1,
+                           cascade_mode=0))
+    widths = dict(residual_channels=R, gate_channels=G, skip_channels=R,
+                  aux_channels=A, upsample_scales=(4, 5), pd_frame_hop=20,
+                  use_weight_norm=False)
+    jmodel = jhn.HNUSFGANGenerator(**nets, **widths)
+    params = jmodel.init(jax.random.PRNGKey(2))
+    r = np.random.default_rng(5)
+    B, Tf, hop = 2, 16, 20
+    x = (0.1 * r.standard_normal((B, Tf * hop, 2))).astype(np.float32)
+    c = r.standard_normal((B, Tf + 4, A)).astype(np.float32)
+    d = np.repeat(r.uniform(3.0, 12.0, (B, Tf)), hop, axis=1).astype(
+        np.float32)
+    y_jax, _ = jax.jit(jmodel.apply)(params, x, c, d)
+    port = thn.HNUSFGANGenerator(**nets, **widths)
+    port.load_state_dict(hnusfgan_state_dict_from_jax(
+        jax.tree.map(np.asarray, params)))
+    with torch.no_grad():
+        y, _ = port(*(torch.from_numpy(a) for a in (x, c, d)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_jax), rtol=1e-4,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("chain,n_chains,n_fixed", [("5", 4, 15),
