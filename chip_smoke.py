@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FastSVC decode and training paths, the B02
 vocoder's synthesis and the B02 acoustic model's decode on one H100, each
-fused-chain mode and the fused-conv switch too.
+fused-chain mode and the fused-conv switch too, and training at the recipe's
+K steps a call as captured CUDA graphs.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
@@ -16,8 +17,11 @@ Phases, each printed on one line with its elapsed seconds:
 3. kernels: each kernel against its plain PyTorch version, in f32 (TF32
    off) and bf16: the forward at the decode shapes of a 400-frame batch of
    8, dx and wgrad at the training shapes of the recipe's batch (32 x 16000
-   samples), wgrad twice bit for bit; the sine also at a 3000-frame (30 s)
-   bucket.
+   samples), wgrad twice bit for bit; the sine (one launch, no scratch)
+   within 1e-6 of its plain version at amp 0.1, two calls bit for bit and
+   one kernel a call in the profile, at (B, Tf, hop, sr) (8, 400, 160, 16
+   kHz) decode, (32, 100) training, (8, 150, 160, 24 kHz) the vocoder's 8 x
+   1 s, (8, 3000) a 30 s bucket, and an odd hop, Tf = 1 and Tf = 2049.
 4. decode: a full-width generator (conf/fastsvc.yaml widths, random
    weights from a seed) converts 8 utterances of 4 s through `synthesize`
    at f32 and bf16; the kernel launch counts of that run are read, the
@@ -31,10 +35,11 @@ Phases, each printed on one line with its elapsed seconds:
    that ran (mma, ffma, stream) and the device time of the kernel and of
    the library call (`queued_ms`: 20 calls queued behind a spin kernel,
    CUDA events), since event times of 20 calls as the host issues them
-   floor at the host's cost of a call; the sine's device time too.
+   floor at the host's cost of a call; the sine's device time and bound at
+   its four timed shapes.
 6. profile: under `torch.profiler`, the device time of each kernel of one
    decode batch (f32, bf16) and the device's busy share of the batch's
-   wall time; the sine kernels' device time at 400 and 3000 frames.
+   wall time; the sine kernel's device time at its four timed shapes.
 7. train step vs CPU (phases 7-9 with cuDNN's deterministic algorithms,
    as the training CLI sets them; the rest with cuDNN's defaults, as
    decode and synthesis leave them): the recipe's generator and MelGAN
@@ -48,7 +53,8 @@ Phases, each printed on one line with its elapsed seconds:
    recipe's batch (32 x 16000), f32 and bf16: bit-identical G and D
    gradients.
 8. train: `Trainer.run` on the recipe's batch (32 x 16000 samples, an
-   in-memory dataset in FastSVCDataset's layout), 20 gen_steps then 20
+   in-memory dataset in FastSVCDataset's layout), one step a call
+   (`steps_per_call: 1`), 20 gen_steps then 20
    gan_steps, in bf16 (packed wire) and f32 (f32 wire): finite losses, the
    kernel launches of each step, steps/s and audio-s/s of each phase's
    second log interval of 10 steps (the Trainer's own rate, CUDA
@@ -117,6 +123,15 @@ Phases, each printed on one line with its elapsed seconds:
    CPU's own bf16-vs-f32 distance), frames/s; then the decoded features
    through the vocoder (`vocode`, aux 63) and the conversion's time per
    utterance.
+21. K steps a call, the recipe's `steps_per_call: 8`, cuDNN deterministic as
+   in phases 7-9: a captured 8-step gen call and gan call
+   (`train/graphs.py`, the recipe's noise on) against 8 eager steps each
+   from the same state, metrics and G, D, moments, counts and noise state
+   bit for bit, bf16 (packed wire) and f32; `Trainer.run` on phase 8's
+   schedule with calls of 8 and 2 (split at the log interval), the rates,
+   waits and peak memory of each phase's timed interval beside phase 8's;
+   one bf16 8-step gan call's device time (the replay's event time, and
+   the profile's kernel sum) and busy share beside phase 9's gan_step.
 
 The line before the last is the kernels' JSON; the last line is
 `{"ok": true, "device": {...}}`, printed only when every phase passed. A
@@ -148,7 +163,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL_CONV = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 TOL_DECODE = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
-TOL_SINE = 2e-4
+TOL_SINE = 1e-6  # the sine kernel against its plain version, at amp 0.1
 # the f32 training step on the card and on the CPU, each against the same
 # step in f64 on the CPU: the card may err by 4x the CPU's own f32 error
 # plus these shares of the f64 value (losses relative; gradients of each
@@ -181,6 +196,12 @@ GRAD_SHAPES = [
 # the B02 vocoder (the JAX package's default HNUSFGANGenerator, as its bench
 # runs it): 24 kHz, hop 160, batch 8 x 1 s; f0 80-400 Hz, 20% unvoiced
 VB, VTF, VHOP, VSR = 8, 150, 160, 24000
+# the sine kernel's (B, Tf, hop, sr), timed: decode, the training batch, the
+# vocoder's 8 x 1 s, a 30 s bucket; then held to its plain version only: an
+# odd hop (the scalar path), one frame, a row whose tiles re-sum 2048 frames
+SINE_SHAPES = [(B, TF, HOP, SR), (TB, 100, HOP, SR), (VB, VTF, VHOP, VSR),
+               (B, TF_LONG, HOP, SR)]
+SINE_EDGES = [(3, 77, 81, SR), (1, 1, HOP, SR), (1, 2049, HOP, SR)]
 VOC_CONFIG = {
     "sampling_rate": VSR,
     "hop_size": VHOP,
@@ -332,11 +353,11 @@ def sass_hmma_counts(lib_path, nvcc_path):
     return counts
 
 
-def random_f0(gen, dev, tf):
-    voiced = torch.rand((B, tf), generator=gen, device=dev) > 0.2
+def random_f0(gen, dev, tf, b=B):
+    voiced = torch.rand((b, tf), generator=gen, device=dev) > 0.2
     return torch.where(voiced,
-                       80 + 320 * torch.rand((B, tf), generator=gen, device=dev),
-                       torch.zeros((B, tf), device=dev))
+                       80 + 320 * torch.rand((b, tf), generator=gen, device=dev),
+                       torch.zeros((b, tf), device=dev))
 
 
 def bound(nbytes, ops, dtype):
@@ -553,7 +574,7 @@ def trainer_run(dev, items, counters, what=""):
     try:
         for dt_name, wire in (("bfloat16", "packed"), ("float32", "f32")):
             cfg = {**TRAIN_CONFIG, "compute_dtype": dt_name,
-                   "wire_format": wire}
+                   "wire_format": wire, "steps_per_call": 1}
             task = build_train_task(cfg, device=dev, seed=7)
             log = []
             task.gen_step = counted(task.gen_step, counters, log)
@@ -591,6 +612,8 @@ def trainer_run(dev, items, counters, what=""):
                     "audio_s_per_s": rates[timed]["audio_s_per_s"],
                     "warm_up_interval_steps_per_s":
                         rates[warm]["steps_per_s"],
+                    "data_wait_s": rates[timed]["data_wait_s"],
+                    "step_wait_s": rates[timed]["step_wait_s"],
                     "peak_mem_gib": peak / 2 ** 30,
                     f"launches_per_step ({names})": log[LOG_STEPS * timed],
                 }
@@ -615,6 +638,194 @@ def trainer_run(dev, items, counters, what=""):
     for k, v in train_rates.items():
         say(f"{what}train {k}: {v}")
     return train_rates, train_launches
+
+
+KSTEPS = 8  # conf/fastsvc.yaml's steps_per_call
+
+
+def _differing(a, b):
+    """Tensors of two FastSVCTrainTasks' training state that differ (an
+    optimizer that has not stepped gets its zero moments first, as its first
+    step would, since a capture makes them)."""
+    for opt in (a.g_opt, a.d_opt, b.g_opt, b.d_opt):
+        opt._init_state()
+    n = {who: sum(not torch.equal(u, v) for u, v in zip(
+        x.state_dict().values(), y.state_dict().values()))
+        for who, x, y in (("G", a.generator, b.generator),
+                          ("D", a.discriminator, b.discriminator))}
+    n["moments"] = sum(not torch.equal(u, v)
+                       for o, q in ((a.g_opt, b.g_opt), (a.d_opt, b.d_opt))
+                       for u, v in zip(o.mu + o.nu, q.mu + q.nu))
+    n["noise generator"] = int(not torch.equal(a.rng.get_state(),
+                                               b.rng.get_state()))
+    n["counts"] = int((a.step, a.g_opt.count, a.d_opt.count)
+                      != (b.step, b.g_opt.count, b.d_opt.count))
+    return n
+
+
+def k_step_phase(dev, items, counters, rates_1, step_profile):
+    """Phase 21: the recipe's steps_per_call 8 (K steps a call, each call
+    one replay of a captured CUDA graph, `train/graphs.py`), full width, the
+    recipe's noise on, cuDNN deterministic as in phases 7-9: (1) a captured
+    8-step gen call and gan call against 8 eager steps each, bit for bit,
+    bf16 (packed wire) and f32; (2) `Trainer.run` on phase 8's schedule,
+    call sizes, rates, waits and peak memory beside phase 8's; (3) the
+    device time and busy share of one bf16 8-step gan call beside phase
+    9's gan_step. Launches are counted where the kernels are captured (and
+    in each graph's eager warm-up step); a replay launches them again
+    without the wrappers."""
+    from svcc23_fastsvc_tpu_torch.bin.common import deterministic_cudnn
+    from svcc23_fastsvc_tpu_torch.config import build_train_task
+    from svcc23_fastsvc_tpu_torch.data.collate import FastSVCBatcher
+    from svcc23_fastsvc_tpu_torch.data.wire import WirePacker, to_device
+    from svcc23_fastsvc_tpu_torch.train.graphs import StepGraphs
+    from svcc23_fastsvc_tpu_torch.train.loop import Trainer, _stack
+
+    deterministic_cudnn()
+    try:
+        # (1) captured against eager, bit for bit
+        for dt_name, wire in (("bfloat16", "packed"), ("float32", "f32")):
+            cfg = {**TRAIN_CONFIG, "compute_dtype": dt_name,
+                   "wire_format": wire}
+            pack = (WirePacker(hop_size=HOP) if wire == "packed"
+                    else (lambda b: b))
+            batcher = FastSVCBatcher(items, batch_size=TB, batch_length=16000,
+                                     hop_size=HOP, seed=5)
+            host = [batcher.sample_batch() for _ in range(2 * KSTEPS)]
+            eager = build_train_task(cfg, device=dev, seed=7)
+            graphed = build_train_task(cfg, device=dev, seed=7)
+            graphs = StepGraphs(graphed)
+            report = {}
+            for i, phase in enumerate(("gen", "gan")):
+                chunk = host[i * KSTEPS:(i + 1) * KSTEPS]
+                want = [getattr(eager, f"{phase}_step")(
+                    to_device(pack(b), dev)) for b in chunk]
+                t0 = time.perf_counter()
+                got = graphs.replay(graphs.stage(phase, pack(_stack(chunk))))
+                torch.cuda.synchronize()
+                report[f"{phase} capture and replay s"] = (
+                    time.perf_counter() - t0)
+                report[f"{phase} metrics that differ"] = sum(
+                    not torch.equal(v, torch.stack([m[n] for m in want]))
+                    for n, v in got.items())
+                report[f"{phase} state that differs"] = _differing(eager,
+                                                                   graphed)
+                require(all(torch.isfinite(v).all().item()
+                            for v in got.values()),
+                        f"K-step {phase} {dt_name}: non-finite metrics")
+            say(f"train {dt_name} ({wire} wire): a captured {KSTEPS}-step "
+                f"gen call, then gan call, against {KSTEPS} eager steps "
+                f"each: {report}")
+            require(all(report[f"{p} metrics that differ"] == 0
+                        and not any(report[f"{p} state that differs"]
+                                    .values()) for p in ("gen", "gan")),
+                    f"K-step calls {dt_name} differ from eager steps: {report}")
+            del eager, graphed, graphs
+            torch.cuda.empty_cache()
+
+        # (2) Trainer.run with steps_per_call 8 on phase 8's schedule
+        names = ", ".join(c.__name__ for c in counters)
+        for c in counters:
+            c.launches = 0
+        want_calls = [KSTEPS, 2] * 4  # split at the log interval (10)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_train_k_")
+        try:
+            for dt_name, wire in (("bfloat16", "packed"), ("float32", "f32")):
+                cfg = {**TRAIN_CONFIG, "compute_dtype": dt_name,
+                       "wire_format": wire, "steps_per_call": KSTEPS}
+                task = build_train_task(cfg, device=dev, seed=7)
+                batcher = FastSVCBatcher(items, batch_size=TB,
+                                         batch_length=16000, hop_size=HOP,
+                                         seed=1)
+                trainer = Trainer(task, batcher, config=cfg,
+                                  outdir=os.path.join(workdir, dt_name))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                trainer.run()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                rates = trainer.history
+                require(all(np.isfinite(v) for x in rates
+                            for v in x.values()),
+                        f"K-step {dt_name}: non-finite losses {rates}")
+                require(task.step == 4 * LOG_STEPS and len(rates) == 4
+                        and trainer.call_sizes == want_calls
+                        and len(trainer._graphs.graphs) == 4,
+                        f"K-step {dt_name}: {task.step} steps, calls "
+                        f"{trainer.call_sizes}, {len(rates)} logged, "
+                        f"{len(trainer._graphs.graphs)} graphs")
+                say(f"train K = {KSTEPS} {dt_name} ({wire} wire): calls "
+                    f"{trainer.call_sizes}, mean losses to step " + "; ".join(
+                        f"{x['step']}: G {x['generator_loss']:.4f}"
+                        + (f" D {x['discriminator_loss']:.4f}"
+                           if "discriminator_loss" in x else "")
+                        for x in rates))
+                for phase, timed in (("gen", 1), ("gan", 3)):
+                    k = {"steps_per_s": rates[timed]["steps_per_s"],
+                         "audio_s_per_s": rates[timed]["audio_s_per_s"],
+                         "data_wait_s": rates[timed]["data_wait_s"],
+                         "step_wait_s": rates[timed]["step_wait_s"],
+                         "drain_s": rates[timed]["drain_s"],
+                         "peak_mem_gib": peak / 2 ** 30}
+                    one = rates_1[f"{phase} {dt_name}"]
+                    say(f"train {phase} {dt_name}: K = {KSTEPS} {k}; K = 1 "
+                        f"(phase 8) " + str({n: one[n] for n in (
+                            "steps_per_s", "audio_s_per_s", "data_wait_s",
+                            "step_wait_s", "peak_mem_gib")}))
+                del task, trainer
+                torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        k_launches = {c.__name__: c.launches for c in counters}
+        require(all(n > 0 for n in k_launches.values()),
+                f"a kernel was not launched in the K-step run: {k_launches}")
+        say(f"train K = {KSTEPS} main path: launches counted at capture "
+            f"({names}) {k_launches}")
+
+        # (3) one bf16 8-step gan call: device time and busy share
+        cfg = {**TRAIN_CONFIG, "compute_dtype": "bfloat16",
+               "wire_format": "packed"}
+        task = build_train_task(cfg, device=dev, seed=7)
+        graphs = StepGraphs(task)
+        batcher = FastSVCBatcher(items, batch_size=TB, batch_length=16000,
+                                 hop_size=HOP, seed=2)
+        packed = WirePacker(hop_size=HOP)(_stack(
+            [batcher.sample_batch() for _ in range(KSTEPS)]))
+
+        def call():
+            graphs.replay(graphs.stage("gan", packed))
+        call()
+        torch.cuda.synchronize()
+        t_wall = time.perf_counter()
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_wall) * 1e3 / 3
+        graph = next(iter(graphs.graphs.values()))
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.graph.replay()
+        end.record()
+        end.synchronize()
+        replay_ms = start.elapsed_time(end)
+        per_kernel = device_ms(call, n=1)
+        kernels_ms = sum(per_kernel.values())
+        say(f"profile K = {KSTEPS} gan call bf16 (B={TB} x 16000): wall "
+            f"{wall_ms:.3f} ms/call ({wall_ms / KSTEPS:.3f} ms/step), "
+            f"replay event time {replay_ms:.3f} ms ({replay_ms / KSTEPS:.3f} "
+            f"ms/step), busy {replay_ms / wall_ms:.1%}; the profiler's "
+            f"kernel sum {kernels_ms:.3f} ms ({kernels_ms / KSTEPS:.3f} "
+            f"ms/step, {len(per_kernel)} rows); phase 9's gan_step: wall "
+            f"{step_profile['wall_ms']:.3f} "
+            f"ms, profiler kernels {step_profile['kernels_ms']:.3f} ms, "
+            f"busy {step_profile['busy']:.1%}")
+        for kname, ms in list(per_kernel.items())[:12]:
+            say(f"  {ms / KSTEPS:8.4f} ms/step "
+                f"{ms / max(kernels_ms, 1e-9):6.1%}  {kname[:100]}")
+        del task, graphs
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return k_launches
 
 
 def vocoder_phases(dev, phases):
@@ -1666,15 +1877,30 @@ def main():
                     for n, (e, sc) in errs.items()))
     f0 = random_f0(gen, dev, TF)
     f0_long = random_f0(gen, dev, TF_LONG)
-    sine_err = {}  # by frame count
-    for f in (f0, f0_long):
-        s_k = sine_excitation(f, hop=HOP, sr=SR, amp=0.1)
-        s_p = sine_excitation_plain(f, hop=HOP, sr=SR, amp=0.1)
+    # the sine kernel: within TOL_SINE of its plain version, two calls bit
+    # for bit, one kernel a call in the profile
+    sgen = torch.Generator(device=dev).manual_seed(2)
+    sine_cases = {}  # (B, Tf, hop, sr) -> (f0, max err)
+    for b_, tf_, hop_, sr_ in SINE_SHAPES + SINE_EDGES:
+        f = (f0 if (b_, tf_) == (B, TF) else f0_long
+             if (b_, tf_) == (B, TF_LONG) else random_f0(sgen, dev, tf_, b_))
+        s_k = sine_excitation(f, hop=hop_, sr=sr_, amp=0.1)
+        s_k2 = sine_excitation(f, hop=hop_, sr=sr_, amp=0.1)
+        s_p = sine_excitation_plain(f, hop=hop_, sr=sr_, amp=0.1)
         err = (s_k - s_p).abs().max().item()
-        require(err <= TOL_SINE, f"sine_excitation {tuple(f.shape)}: max "
-                                 f"err {err}")
-        say(f"sine_excitation {tuple(f.shape)} hop {HOP}: max err {err:.3e}")
-        sine_err[f.shape[1]] = err
+        require(tuple(s_k.shape) == (b_, tf_ * hop_) and err <= TOL_SINE,
+                f"sine_excitation {(b_, tf_, hop_, sr_)}: max err {err}")
+        require(torch.equal(s_k, s_k2),
+                f"sine_excitation {(b_, tf_, hop_, sr_)}: two calls differ")
+        per_call = device_ms(
+            lambda f=f, h=hop_, r=sr_: sine_excitation(f, hop=h, sr=r,
+                                                      amp=0.1), n=3)
+        require(len(per_call) == 1, f"sine_excitation {(b_, tf_, hop_, sr_)}:"
+                                    f" kernels a call {list(per_call)}")
+        sine_cases[(b_, tf_, hop_, sr_)] = (f, err)
+        say(f"sine_excitation ({b_},{tf_}) hop {hop_} sr {sr_}: max err "
+            f"{err:.3e}, two calls equal, kernels a call "
+            f"{[k[:60] for k in per_call]}")
     phases["kernels_s"] = time.perf_counter() - t
 
     # 4. the slice end to end
@@ -1762,24 +1988,28 @@ def main():
             "device_ms": queued_ms(kern),
             "library_device_ms": queued_ms(lib),
         })
-    nbytes = f0.numel() * 4 + B * TF * HOP * 4
-    s_ms, s_by = bound(nbytes, 10 * B * TF * HOP, torch.float32)
-    kernels.append({
-        "name": f"sine_excitation f32 ({B},{TF}) hop {HOP}",
-        "route": "cuda",
-        "source": "svcc23_fastsvc_tpu_torch/csrc/sine_excitation.cu",
-        "replaces": "svcc23_fastsvc_tpu/ops/pallas_kernels.py:78",
-        "launches": launches["sine_excitation"],
-        "max_abs_err": sine_err[TF],
-        "ms": cuda_ms(lambda: sine_excitation(f0, hop=HOP, sr=SR, amp=0.1)),
-        "plain_ms": cuda_ms(
-            lambda: sine_excitation_plain(f0, hop=HOP, sr=SR, amp=0.1)),
-        "bound_ms": s_ms,
-        "bound_by": s_by,
-        "library_ms": None,
-        "device_ms": queued_ms(
-            lambda: sine_excitation(f0, hop=HOP, sr=SR, amp=0.1)),
-    })
+    for b_, tf_, hop_, sr_ in SINE_SHAPES:
+        f, err = sine_cases[(b_, tf_, hop_, sr_)]
+        nbytes = f.numel() * 4 + b_ * tf_ * hop_ * 4
+        s_ms, s_by = bound(nbytes, 10 * b_ * tf_ * hop_, torch.float32)
+
+        def sine(f=f, h=hop_, r=sr_):
+            sine_excitation(f, hop=h, sr=r, amp=0.1)
+        kernels.append({
+            "name": f"sine_excitation f32 ({b_},{tf_}) hop {hop_} sr {sr_}",
+            "route": "cuda",
+            "source": "svcc23_fastsvc_tpu_torch/csrc/sine_excitation.cu",
+            "replaces": "svcc23_fastsvc_tpu/ops/pallas_kernels.py:94",
+            "launches": launches["sine_excitation"],
+            "max_abs_err": err,
+            "ms": cuda_ms(sine),
+            "plain_ms": cuda_ms(lambda f=f, h=hop_, r=sr_: (
+                sine_excitation_plain(f, hop=h, sr=r, amp=0.1))),
+            "bound_ms": s_ms,
+            "bound_by": s_by,
+            "library_ms": None,
+            "device_ms": queued_ms(sine),
+        })
     for k in kernels:
         say(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} by "
@@ -1809,10 +2039,11 @@ def main():
             f"kernels {busy:.3f} ms, busy {busy / wall_ms:.1%}")
         for kname, ms in list(per_kernel.items())[:12]:
             say(f"  {ms:8.4f} ms {ms / busy:6.1%}  {kname[:110]}")
-    for f in (f0, f0_long):
-        per_kernel = device_ms(
-            lambda f=f: sine_excitation(f, hop=HOP, sr=SR, amp=0.1), n=5)
-        say(f"profile sine_excitation {tuple(f.shape)}: " + ", ".join(
+    for b_, tf_, hop_, sr_ in SINE_SHAPES:
+        f = sine_cases[(b_, tf_, hop_, sr_)][0]
+        per_kernel = device_ms(lambda f=f, h=hop_, r=sr_: sine_excitation(
+            f, hop=h, sr=r, amp=0.1), n=5)
+        say(f"profile sine_excitation ({b_},{tf_}) hop {hop_}: " + ", ".join(
             f"{kname} {ms * 1e3:.2f} us" for kname, ms in per_kernel.items()))
     phases["profile_s"] = time.perf_counter() - t
 
@@ -1856,6 +2087,8 @@ def main():
     busy = sum(per_kernel.values())
     say(f"profile gan_step bf16 (B={TB} x 16000): wall {wall_ms:.3f} ms/step, "
         f"kernels {busy:.3f} ms, busy {busy / wall_ms:.1%}")
+    step_profile = {"wall_ms": wall_ms, "kernels_ms": busy,
+                    "busy": busy / wall_ms}
     for kname, ms in list(per_kernel.items())[:20]:
         say(f"  {ms:8.4f} ms {ms / busy:6.1%}  {kname[:110]}")
     del task
@@ -1938,8 +2171,18 @@ def main():
         dev, phases, items, {torch.float32: g32, torch.bfloat16: g16}, sg,
         (ppg, f0_in, lft, emb), rng_states, ys, decode_rate, train_rates)
     kernels += fused_rows
+
+    # 21. the recipe's steps_per_call 8: captured K-step calls
+    t = time.perf_counter()
+    k_launches = k_step_phase(dev, items, (window_conv, window_conv_dx,
+                                           window_conv_wgrad, sine_excitation),
+                              train_rates, step_profile)
+    phases["train_k_steps_s"] = time.perf_counter() - t
+    say(f"phase 21 (K = {KSTEPS} steps a call): "
+        f"{phases['train_k_steps_s']:.1f} s")
     paths = {"decode": launches, "train": train_launches, **voc_launches,
-             "decode_chain": down_launches, **fused_paths}
+             "decode_chain": down_launches, **fused_paths,
+             "train_k_steps": k_launches}
     for row in kernels:
         name = row["name"].split(" ")[0]
         row["launches_by_path"] = {p: n.get(name, 0) for p, n in paths.items()}

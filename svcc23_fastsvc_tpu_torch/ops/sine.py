@@ -9,8 +9,9 @@ amp * sin(2*pi*phase), zero where f0 <= 0, with
 
 which equals the reference's sin(2*pi*cumsum(repeat(f0, hop)/sr mod 1)).
 It replaces the TPU kernel `svcc23_fastsvc_tpu/ops/pallas_kernels.py::
-sine_excitation`. The CUDA source is `csrc/sine_excitation.cu`; its header
-says how the TPU kernel's sequential phase carry became a scan over frames.
+sine_excitation`. The CUDA source is `csrc/sine_excitation.cu`: one launch,
+no scratch; its header says how the TPU kernel's sequential phase carry
+became a prefix each block of threads sums for its own tile of frames.
 
 Both versions reduce each frame's increment mod 1 before summing, so the
 phase stays below 2 and keeps f32 precision however long the utterance;
@@ -29,7 +30,7 @@ import torch
 
 from . import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
@@ -62,10 +63,9 @@ def sine_excitation(f0, *, hop: int, sr: float, amp: float = 0.1):
     out = torch.empty((B, Tf * hop), dtype=torch.float32, device=f0.device)
     if out.numel() == 0:
         return out
-    prefix = torch.empty_like(f0)
     fn = _build.kernel("sine_excitation_f32", _ARGTYPES)
-    err = fn(f0.data_ptr(), prefix.data_ptr(), out.data_ptr(), B, Tf, hop,
-             float(sr), float(amp), _build.stream_handle(f0.device))
+    err = fn(f0.data_ptr(), out.data_ptr(), B, Tf, hop, float(sr),
+             float(amp), _build.stream_handle(f0.device))
     _build.check(err, "sine_excitation_f32")
     sine_excitation.launches += 1
     return out

@@ -11,17 +11,20 @@ package never had a Pallas kernel here; the FFT is `torch.fft.rfft`
 
 from __future__ import annotations
 
-import numpy as np
+import math
+
 import torch
 import torch.nn.functional as F
 
 
 def hann_window(win_length: int, dtype=torch.float32, device=None):
     """Periodic Hann window (torch.hann_window / scipy fftbins=True), made
-    in f64 and rounded, as the JAX package makes it."""
-    n = np.arange(win_length, dtype=np.float64)
-    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
-    return torch.tensor(w, dtype=dtype, device=device)
+    in f64 and rounded, as the JAX package makes it. It is made on `device`:
+    a copy from the host would sync the stream in every training step, and
+    a captured step (train/graphs.py) may not copy from the host at all."""
+    n = torch.arange(win_length, dtype=torch.float64, device=device)
+    w = 0.5 - 0.5 * torch.cos(2.0 * math.pi * n / win_length)
+    return w.to(dtype)
 
 
 def frame_signal(x, frame_length: int, hop: int):

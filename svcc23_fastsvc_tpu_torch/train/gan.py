@@ -12,6 +12,13 @@ The task holds the models, their optimizers (`train.state.RefRAdam`), the
 step count and the excitation's noise generator; each step updates them in
 place and returns its metrics as 0-d device tensors (no host sync).
 
+`multi_step` runs K steps of one phase in a call, the counterpart of JAX
+`make_multi_step` (a `lax.scan` there): batches stacked on a leading K
+axis in, metrics (K,) out. Its body, `run_steps`, reads every per-step
+scalar of the optimizers from a device table and changes nothing on the
+host, so `train.graphs` can capture it as one CUDA graph; on the CPU it is
+an eager loop over the same per-step code.
+
 bf16 follows the JAX package's `_cast` contract, not `torch.autocast`:
 parameters and optimizer state stay f32, the step casts the parameters
 (inside the graph, so gradients come back in f32) and the f32 inputs to
@@ -23,6 +30,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -122,9 +130,12 @@ class FastSVCTrainTask:
                              "discriminator_loss": real + fake}
 
     @staticmethod
-    def _update(module, opt, loss):
-        params = list(module.parameters())
-        opt.step(torch.autograd.grad(loss, params))
+    def _update(module, opt, loss, coef=None):
+        grads = torch.autograd.grad(loss, list(module.parameters()))
+        if coef is None:  # the host path: wrappers of opt.step(grads) work
+            opt.step(grads)
+        else:
+            opt.step(grads, coef)
 
     @staticmethod
     def _detach(metrics):
@@ -132,30 +143,80 @@ class FastSVCTrainTask:
 
     # -- steps -----------------------------------------------------------
 
-    def gen_step(self, batch) -> dict:
-        """Phase A: a generator-only update."""
+    def _gen(self, batch, g_coef=None):
         batch = self._unwire(batch)
         sine = self._sine(batch, self.rng)
         loss, metrics = self._gen_loss(batch, sine, with_adv=False)
-        self._update(self.generator, self.g_opt, loss)
-        self.step += 1
+        self._update(self.generator, self.g_opt, loss, g_coef)
         return self._detach(metrics)
 
-    def gan_step(self, batch) -> dict:
-        """Phase B: a generator update with the adversarial term, then a
-        discriminator update on y_ made again by the updated generator."""
+    def _gan(self, batch, g_coef=None, d_coef=None):
         batch = self._unwire(batch)
         sine = self._sine(batch, self.rng)
         loss, metrics = self._gen_loss(batch, sine, with_adv=True)
-        self._update(self.generator, self.g_opt, loss)
+        self._update(self.generator, self.g_opt, loss, g_coef)
         # the reference reuses the batch, its excitation included
         with torch.no_grad():
             y_hat = self._forward(batch, sine, inference=True)
         d_loss, d_metrics = self._dis_loss(batch["audio"], y_hat)
-        self._update(self.discriminator, self.d_opt, d_loss)
+        self._update(self.discriminator, self.d_opt, d_loss, d_coef)
         metrics.update(d_metrics)
-        self.step += 1
         return self._detach(metrics)
+
+    def gen_step(self, batch) -> dict:
+        """Phase A: a generator-only update."""
+        metrics = self._gen(batch)
+        self.step += 1
+        return metrics
+
+    def gan_step(self, batch) -> dict:
+        """Phase B: a generator update with the adversarial term, then a
+        discriminator update on y_ made again by the updated generator."""
+        metrics = self._gan(batch)
+        self.step += 1
+        return metrics
+
+    # -- K steps a call ----------------------------------------------------
+
+    def coefficient_table(self, k: int) -> np.ndarray:
+        """(2, k, 4) f32: G's and D's `RefRAdam.coefficients` for the next
+        k steps (D's unused by a gen call)."""
+        return np.stack([self.g_opt.coefficients(k),
+                         self.d_opt.coefficients(k)])
+
+    def run_steps(self, phase: str, batches: dict, coefs) -> dict:
+        """k steps of `phase` ("gen" or "gan") on `batches` stacked on a
+        leading k axis, with the optimizers' scalars from `coefs` (a device
+        tensor of `coefficient_table(k)`). Metrics come back stacked, (k,)
+        each. Nothing on the host changes: `advance` counts the steps."""
+        k = coefs.shape[1]
+        rows = []
+        for i in range(k):
+            batch = {name: v[i] for name, v in batches.items()}
+            if phase == "gen":
+                rows.append(self._gen(batch, coefs[0, i]))
+            else:
+                rows.append(self._gan(batch, coefs[0, i], coefs[1, i]))
+        return {name: torch.stack([r[name] for r in rows])
+                for name in rows[0]}
+
+    def advance(self, phase: str, k: int):
+        """Count k steps of `phase` run by `run_steps`."""
+        self.step += k
+        self.g_opt.advance(k)
+        if phase == "gan":
+            self.d_opt.advance(k)
+
+    def multi_step(self, phase: str, batches: dict) -> dict:
+        """k steps of `phase` in one call, eagerly: the counterpart of JAX
+        `make_multi_step(task.{phase}_step)`. `batches` holds device tensors
+        stacked on a leading k axis; the metrics are (k,) device tensors.
+        The same bits as k calls of `{phase}_step`."""
+        k = next(iter(batches.values())).shape[0]
+        coefs = torch.from_numpy(self.coefficient_table(k)).to(self.device)
+        metrics = self.run_steps(phase, batches, coefs)
+        self.advance(phase, k)
+        return metrics
 
     @torch.no_grad()
     def eval_step(self, batch, *, with_adv: bool = True) -> dict:

@@ -4,14 +4,19 @@ Counterpart of `svcc23_fastsvc_tpu/train/loop.py::Trainer`, the part the
 FastSVC recipe runs on one device: a step loop that picks `gen_step` up to
 `discriminator_train_start_steps` and `gan_step` after it, log, eval and
 save intervals, `train_max_steps`, resume, the packed wire format, and a
-graceful SIGTERM (checkpoint at the next step boundary, `preempted` set,
+graceful SIGTERM (checkpoint at the next call boundary, `preempted` set,
 the CLI exits 75).
 
-The port runs one step per call: the JAX package's `steps_per_call` (K
-steps in one `lax.scan` program) has no counterpart yet, and a config that
-sets it is logged as running one step per call. Scalars go to the log
-only (no tensorboard yet). The batcher runs in the
-loop's thread (no prefetch thread), so its random state at a checkpoint is
+`steps_per_call` K > 1 runs K steps a call, as the JAX trainer does
+(`lax.scan` there): calls split at the log, eval and save intervals and at
+the phase switch (`_next_boundary`, the JAX rule), k batches stacked and
+packed and sent in one transfer, and the log takes each call's mean over
+its steps. On the card a call is one replay of a captured CUDA graph
+(`train.graphs.StepGraphs`); on the CPU, `FastSVCTrainTask.multi_step`'s
+eager loop. A call of one step, and every step when K = 1, is the eager
+`gen_step` / `gan_step`. Preemption is honoured between calls. Scalars go
+to the log only (no tensorboard yet). The batcher runs in the loop's
+thread (no prefetch thread), so its random state at a checkpoint is
 exactly that of the steps taken.
 
 CUDA runs asynchronously, so each interval's rate is taken after the
@@ -27,6 +32,7 @@ import time
 from collections import defaultdict
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..data.wire import WirePacker, to_device
@@ -37,6 +43,12 @@ from .checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from .graphs import StepGraphs
+
+
+def _stack(batches: list) -> dict:
+    """Host batches stacked on a new leading axis, field by field."""
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
 
 
 class Trainer:
@@ -53,9 +65,11 @@ class Trainer:
         # raises when it fails) here, not inside a step
         self.conv_lowering = decide_conv_lowering(self.device)
         logging.info("conv lowering: %s", self.conv_lowering)
-        if int(config.get("steps_per_call", 1)) > 1:
-            logging.info("steps_per_call %s: the port runs one step per "
-                         "call", config["steps_per_call"])
+        # K steps a call: on the card one captured CUDA graph per (phase,
+        # k, batch layout), on the CPU an eager loop (train/graphs.py)
+        self.steps_per_call = max(int(config.get("steps_per_call", 1)), 1)
+        self._graphs = (StepGraphs(task) if self.steps_per_call > 1
+                        and self.device.type == "cuda" else None)
         # the packed wire is exact only when the step casts to bf16 anyway
         wf = str(config.get("wire_format", "f32"))
         if wf not in ("f32", "packed"):
@@ -72,6 +86,8 @@ class Trainer:
         else:
             self._pack = lambda b: b
         self._pending = []
+        # the steps each call ran, in order
+        self.call_sizes: list = []
         self._preempt_requested = False
         self.preempted = False
         # what each log interval logged: step, mean losses, rates, waits
@@ -135,6 +151,16 @@ class Trainer:
         waits = dict.fromkeys(("data", "step", "drain", "eval", "save"), 0.0)
         step = self.task.step
         t_last, steps_last = time.time(), step
+
+        def _next_boundary(s):
+            # steps until the next interval or phase boundary (JAX's rule)
+            cands = [max_steps - s]
+            for iv in (log_iv, eval_iv, save_iv):
+                cands.append(iv - (s % iv))
+            if s <= d_start:
+                cands.append(d_start - s + 1)
+            return max(min(cands), 1)
+
         try:
             while step < max_steps:
                 if self._preempt_requested:
@@ -142,23 +168,40 @@ class Trainer:
                     logging.warning("preempted at step %d; saving and "
                                     "exiting (resume with --resume)", step)
                     break
+                k = min(self.steps_per_call, _next_boundary(step))
+                phase = "gan" if step > d_start else "gen"
                 t0 = time.time()
-                batch = self._pack(self.train_batcher.sample_batch())
-                batch = to_device(batch, self.device)
-                waits["data"] += time.time() - t0
-                t0 = time.time()
-                if step > d_start:
-                    metrics = self.task.gan_step(batch)
+                if k > 1:
+                    batches = self._pack(_stack(
+                        [self.train_batcher.sample_batch() for _ in range(k)]))
+                    if self._graphs is not None:
+                        staged = self._graphs.stage(phase, batches)
+                    else:
+                        staged = to_device(batches, self.device)
+                    waits["data"] += time.time() - t0
+                    t0 = time.time()
+                    if self._graphs is not None:
+                        metrics = self._graphs.replay(staged)
+                    else:
+                        metrics = self.task.multi_step(phase, staged)
+                    # the mean over the call's steps, as the JAX trainer
+                    # logs it
+                    metrics = {n: v.mean(0) for n, v in metrics.items()}
                 else:
-                    metrics = self.task.gen_step(batch)
+                    batch = self._pack(self.train_batcher.sample_batch())
+                    batch = to_device(batch, self.device)
+                    waits["data"] += time.time() - t0
+                    t0 = time.time()
+                    metrics = getattr(self.task, f"{phase}_step")(batch)
                 waits["step"] += time.time() - t0
                 step = self.task.step
-                self._pending.append(metrics)
+                self.call_sizes.append(k)
+                self._accumulate(metrics)
 
                 if step % log_iv == 0:
                     # drain first, so the interval's time is the device's too
                     t0 = time.time()
-                    # one device-to-host copy per step
+                    # one device-to-host copy per call
                     host = [dict(zip(m, torch.stack(list(m.values())).tolist()))
                             for m in self._pending]
                     if self.device.type == "cuda":
@@ -192,6 +235,9 @@ class Trainer:
             self.save()
 
     # -- logging ---------------------------------------------------------
+
+    def _accumulate(self, metrics):
+        self._pending.append(metrics)
 
     def _flush_logs(self, step, host, extra):
         items = defaultdict(float)

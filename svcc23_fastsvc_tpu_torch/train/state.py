@@ -98,26 +98,56 @@ class RefRAdam:
             self.mu = [torch.zeros_like(p) for p in self.params]
             self.nu = [torch.zeros_like(p) for p in self.params]
 
+    def coefficients(self, k: int) -> np.ndarray:
+        """The per-step scalars of the next `k` steps as a (k, 4) f32 table:
+        lr, use_rect (1 or 0), rect and sgd_step, each as `step` computes it
+        on the host. A captured step reads them from the device, so a call
+        of k steps may cross a StepLR boundary or the switch to the
+        rectified update."""
+        rows = []
+        for i in range(k):
+            use_rect, rect, sgd_step = radam_coefficients(self.count + i + 1)
+            rows.append((self.schedule(self.count + i), float(use_rect), rect,
+                         sgd_step))
+        return np.asarray(rows, dtype=np.float32)
+
     @torch.no_grad()
-    def step(self, grads):
-        """Update the parameters in place from their gradients."""
+    def step(self, grads, coef=None):
+        """Update the parameters in place from their gradients.
+
+        With `coef` None the step takes its scalars on the host and counts
+        itself. `coef` is one row of `coefficients` as a (4,) tensor on
+        the parameters' device: the step then syncs nothing to the host,
+        picks the branch with `torch.where`, gives the same bits, and
+        leaves `count` to the caller (`advance`)."""
         self._init_state()
         grads = [g.to(p.dtype) for g, p in zip(grads, self.params)]
         if self.grad_norm and self.grad_norm > 0:
             grads = clip_by_global_norm(grads, self.grad_norm)
-        lr = self.schedule(self.count)
-        self.count += 1
-        use_rect, rect, sgd_step = radam_coefficients(self.count)
+        if coef is None:
+            neg_lr = -self.schedule(self.count)
+            self.count += 1
+            use_rect, rect, sgd_step = radam_coefficients(self.count)
+        else:
+            lr, use_rect, rect, sgd_step = coef.unbind(0)
+            neg_lr, use_rect = -lr, use_rect > 0
         for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
             m.mul_(B1).add_(g * (1.0 - B1))
             v.mul_(B2).add_(g * g * (1.0 - B2))
-            if use_rect:
+            if coef is not None:
+                u = torch.where(use_rect, rect * m / (torch.sqrt(v) + self.eps),
+                                sgd_step * m)
+            elif use_rect:
                 u = rect * m / (torch.sqrt(v) + self.eps)
             else:
                 u = sgd_step * m
             if self.weight_decay:
                 u = u + self.weight_decay * p
-            p.add_(u * -lr)
+            p.add_(u * neg_lr)
+
+    def advance(self, k: int):
+        """Count `k` steps taken with `step(grads, coef)`."""
+        self.count += k
 
     def current_lr(self) -> float:
         return self.schedule(self.count)

@@ -297,19 +297,48 @@ def test_fused_conv_forward_with_lo_not_hi_matches_plain(cuda, dtype, tol, B,
            fused_conv1d_plain(x, w, b, lo, hi, dil, 0.2), tol)
 
 
-# Tf > 1024 gives each thread of the prefix scan a run of several frames
-@pytest.mark.parametrize("B,Tf", [(8, 400), (3, 77), (1, 1), (2, 3000),
-                                  (1, 2049)])
-def test_sine_kernel_matches_plain(cuda, B, Tf):
+# B, Tf, hop, sr: the decode batch, the training batch, the vocoder's 8 x 1
+# s at 24 kHz, a 30 s bucket (tiles of 48 frames), an odd hop (the scalar
+# path), one frame, and a row whose tiles re-sum 2048 frames
+SINE_CASES = [(8, 400, 160, 16000), (32, 100, 160, 16000),
+              (8, 150, 160, 24000), (8, 3000, 160, 16000),
+              (3, 77, 81, 16000), (1, 1, 160, 16000), (2, 3000, 160, 16000),
+              (1, 2049, 160, 16000)]
+
+
+@pytest.mark.parametrize("B,Tf,hop,sr", SINE_CASES)
+def test_sine_kernel_matches_plain(cuda, B, Tf, hop, sr):
+    """Within 1e-6 of the plain version at amp 0.1 (the kernel keeps its
+    roundings), one launch a call, and two calls bit for bit."""
     r = np.random.default_rng(7)
-    f0 = np.where(r.random((B, Tf)) > 0.3, r.uniform(80, 300, (B, Tf)), 0.0)
+    f0 = np.where(r.random((B, Tf)) > 0.3, r.uniform(80, 400, (B, Tf)), 0.0)
     f0 = torch.from_numpy(f0.astype(np.float32)).to(cuda)
     before = sine_excitation.launches
-    got = sine_excitation(f0, hop=160, sr=16000, amp=0.1)
+    got = sine_excitation(f0, hop=hop, sr=sr, amp=0.1)
+    again = sine_excitation(f0, hop=hop, sr=sr, amp=0.1)
     torch.cuda.synchronize()
-    assert sine_excitation.launches == before + 1
-    want = sine_excitation_plain(f0, hop=160, sr=16000, amp=0.1)
-    assert (got - want).abs().max().item() <= 2e-4
+    assert sine_excitation.launches == before + 2
+    want = sine_excitation_plain(f0, hop=hop, sr=sr, amp=0.1)
+    assert got.shape == want.shape == (B, Tf * hop)
+    assert (got - want).abs().max().item() <= 1e-6
+    assert torch.equal(got, again)
+
+
+def test_sine_kernel_is_one_kernel_a_call(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    f0 = torch.full((8, 400), 220.0, device=cuda)
+    sine_excitation(f0, hop=160, sr=16000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sine_excitation(f0, hop=160, sr=16000)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "sine" in e.name]
+    assert len(kernels) == 3, [e.name for e in kernels]
+    assert all(e.name == kernels[0].name for e in kernels)
 
 
 def test_generator_on_the_card_matches_the_cpu(cuda):
@@ -975,6 +1004,126 @@ def test_train_step_is_bit_stable_on_the_card(cuda):
         torch.backends.cudnn.deterministic = saved
     for ga, gb in zip(*runs):
         assert all(torch.equal(a, b) for a, b in zip(ga, gb))
+
+
+TINY_TRAIN = {
+    "sampling_rate": 4000, "hop_size": 20,
+    "generator_params": dict(in_channels=8, mid_channels=[16, 8],
+                             upsampling_scales=[4, 5], spk_emb_size=12,
+                             use_spk_emb=True),
+    "discriminator_params": {"scales": 2, "channels": 4,
+                             "max_downsample_channels": 32,
+                             "downsample_scales": [4, 4]},
+    "stft_loss_params": {"fft_sizes": [64, 128], "hop_sizes": [16, 32],
+                         "win_lengths": [64, 128]},
+    "signal_generator": {"sine_amp": 0.1, "noise_amp": 0.003,
+                         "signal_types": ["sine"]},
+}
+
+
+def _host_batches(n, seed):
+    r = np.random.default_rng(seed)
+    return [{"ppg": r.standard_normal((4, 40, 8)).astype(np.float32),
+             "f0": np.where(r.random((4, 40, 1)) > 0.2,
+                            r.uniform(80, 300, (4, 40, 1)),
+                            0.0).astype(np.float32),
+             "lft": r.standard_normal((4, 800, 1)).astype(np.float32),
+             "spk_emb": r.standard_normal((4, 12)).astype(np.float32),
+             "audio": (0.3 * r.standard_normal((4, 800, 1))).astype(
+                 np.float32)} for _ in range(n)]
+
+
+@pytest.fixture
+def deterministic(cuda):
+    from svcc23_fastsvc_tpu_torch.bin.common import deterministic_cudnn
+
+    saved = torch.backends.cudnn.deterministic
+    deterministic_cudnn()
+    yield cuda
+    torch.backends.cudnn.deterministic = saved
+
+
+def _assert_same_training_state(a, b):
+    # a capture makes both optimizers' moments; eager steps make D's at
+    # its first step, zeros either way
+    for opt in (a.g_opt, a.d_opt, b.g_opt, b.d_opt):
+        opt._init_state()
+    for x, y in ((a.generator, b.generator),
+                 (a.discriminator, b.discriminator)):
+        for (k, u), v in zip(x.state_dict().items(),
+                             y.state_dict().values()):
+            assert torch.equal(u, v), k
+    for x, y in ((a.g_opt, b.g_opt), (a.d_opt, b.d_opt)):
+        assert x.count == y.count
+        assert all(torch.equal(u, v) for u, v in zip(x.mu + x.nu,
+                                                     y.mu + y.nu))
+    assert a.step == b.step
+    assert torch.equal(a.rng.get_state(), b.rng.get_state())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("phase", ["gen", "gan"])
+def test_captured_k_steps_equal_k_eager_steps(deterministic, phase, dtype):
+    """One replay of a captured 3-step call, noise on, against 3 eager
+    steps from the same state: metrics, weights, moments, counts and the
+    noise generator's state equal bit for bit."""
+    from svcc23_fastsvc_tpu_torch.config import build_train_task
+    from svcc23_fastsvc_tpu_torch.data.wire import to_device
+    from svcc23_fastsvc_tpu_torch.train.graphs import StepGraphs
+    from svcc23_fastsvc_tpu_torch.train.loop import _stack
+
+    cfg = {**TINY_TRAIN, "compute_dtype": dtype}
+    eager = build_train_task(cfg, device=deterministic, seed=1)
+    graphed = build_train_task(cfg, device=deterministic, seed=1)
+    batches = _host_batches(3, seed=5)
+    want = [getattr(eager, f"{phase}_step")(to_device(b, deterministic))
+            for b in batches]
+    graphs = StepGraphs(graphed)
+    got = graphs.replay(graphs.stage(phase, _stack(batches)))
+    torch.cuda.synchronize()
+    assert set(got) == set(want[0])
+    for name, v in got.items():
+        assert torch.equal(v, torch.stack([m[name] for m in want])), name
+    _assert_same_training_state(eager, graphed)
+
+
+def test_graph_replays_advance_the_noise_as_eager_steps(deterministic):
+    """Two replays of one captured 2-step gan call draw the noise four
+    eager steps draw: the same state after, and a replay's graph is the
+    one captured first."""
+    from svcc23_fastsvc_tpu_torch.config import build_train_task
+    from svcc23_fastsvc_tpu_torch.data.wire import to_device
+    from svcc23_fastsvc_tpu_torch.train.graphs import StepGraphs
+    from svcc23_fastsvc_tpu_torch.train.loop import _stack
+
+    eager = build_train_task(TINY_TRAIN, device=deterministic, seed=2)
+    graphed = build_train_task(TINY_TRAIN, device=deterministic, seed=2)
+    batches = _host_batches(4, seed=6)
+    for b in batches:
+        eager.gan_step(to_device(b, deterministic))
+    graphs = StepGraphs(graphed)
+    first = graphs.stage("gan", _stack(batches[:2]))
+    graphs.replay(first)
+    second = graphs.stage("gan", _stack(batches[2:]))
+    assert second is first and len(graphs.graphs) == 1
+    graphs.replay(second)
+    torch.cuda.synchronize()
+    _assert_same_training_state(eager, graphed)
+
+
+def test_graph_replay_refuses_a_rebound_parameter(deterministic):
+    from svcc23_fastsvc_tpu_torch.config import build_train_task
+    from svcc23_fastsvc_tpu_torch.train.graphs import StepGraphs
+    from svcc23_fastsvc_tpu_torch.train.loop import _stack
+
+    task = build_train_task(TINY_TRAIN, device=deterministic, seed=3)
+    graphs = StepGraphs(task)
+    batches = _stack(_host_batches(2, seed=7))
+    graphs.replay(graphs.stage("gen", batches))
+    p = next(task.generator.parameters())
+    p.data = p.data.clone()
+    with pytest.raises(RuntimeError, match="rebound"):
+        graphs.replay(graphs.stage("gen", batches))
 
 
 # B, T, Cin, Cout, K, dilation, (lo, hi), slope, bias: the JAX kernel's
