@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FastSVC decode and training paths, the B02
-vocoder's synthesis and the B02 acoustic model's decode on one H100, each
-fused-chain mode and the fused-conv switch too, and training at the recipe's
-K steps a call as captured CUDA graphs.
+vocoder's synthesis and the B02 acoustic model's decode and training on one
+H100, each fused-chain mode and the fused-conv switch too, and FastSVC
+training at the recipe's K steps a call as captured CUDA graphs.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
@@ -132,6 +132,22 @@ Phases, each printed on one line with its elapsed seconds:
    waits and peak memory of each phase's timed interval beside phase 8's;
    one bf16 8-step gan call's device time (the replay's event time, and
    the profile's kernel sum) and busy share beside phase 9's gan_step.
+22. B02 training (the Tacotron2 and MultiSubFreqDiscriminator at
+   conf/taco2.yaml's width, random weights from a seed, cuDNN
+   deterministic): one gen_step and one gan_step on 2 x 400 frames, f32 on
+   the card against the CPU in f32 and f64 (phase 7's rule) on the same
+   dropout masks and window starts; two gan_steps from one state on 16 x
+   400 frames, f32 and bf16, gradients bit for bit; `Trainer.run` on an
+   in-memory 16 x 400 dataset in B02Dataset's layout, 4 gen_steps then 4
+   gan_steps, bf16 (packed wire) and f32, with the switch off (#2, #3, #4
+   launched in every step) and, after the "auto" probe, on (#5 and #6 in
+   every step): finite losses, steps/s and frames/s of each phase's second
+   log interval of 2 steps, launches per step, peak memory, the last
+   checkpoint reloaded into a fresh task and into `load_acoustic_model`;
+   one bf16 gan_step's busy share under torch.profiler; #2-#6 at the bap
+   stream's training shapes (batch 16) against their plain versions, with
+   the kernel's, the plain version's and cuDNN's times, device times and
+   the bound.
 
 The line before the last is the kernels' JSON; the last line is
 `{"ok": true, "device": {...}}`, printed only when every phase passed. A
@@ -283,11 +299,15 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, n=3):
+def device_ms(fn, n=3, host_ops=True):
     """Device ms per call of each kernel `fn` launches (torch.profiler rows
-    with device time and no host time), largest first."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device time and no host time), largest first. Without `host_ops`
+    the profiler records the device's activity only, which keeps a step of
+    ~10^5 launches quick to trace."""
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -435,6 +455,55 @@ def decode_vs_cpu(dev, gens, sg, inputs, rng_states, ys):
     return out
 
 
+def hold_to_f64(losses, grads, whos):
+    """Phase 7's rule: each loss and gradient of the card's f32 step within
+    4x the CPU f32 step's distance from the CPU f64 step, plus a margin
+    (TOL_TRAIN_*); `losses[label]` {name: value}, `grads[label]` a list of
+    gradient lists (one per optimizer step, named by `whos`), for the labels
+    "cpu f64", "cpu f32" and "card f32". Returns the rows it printed."""
+    loss_rows = {}
+    for k, ref in losses["cpu f64"].items():
+        e_card = abs(losses["card f32"][k] - ref)
+        e_cpu = abs(losses["cpu f32"][k] - ref)
+        loss_rows[k] = (e_card / abs(ref), e_cpu / abs(ref))
+        require(e_card <= F32_FACTOR * e_cpu + TOL_TRAIN_LOSS * abs(ref),
+                f"train step {k}: card err {e_card}, CPU f32 err {e_cpu}, "
+                f"f64 {ref}")
+    grad_rows = {}
+    for who, got, cpu, ref in zip(whos, grads["card f32"], grads["cpu f32"],
+                                  grads["cpu f64"]):
+        step_scale = max(r.abs().max().item() for r in ref)
+        scales = [max(r.abs().max().item(), 1e-6 * step_scale) for r in ref]
+        rel_card = [(a - r).abs().max().item() / sc
+                    for a, r, sc in zip(got, ref, scales)]
+        rel_cpu = [(b - r).abs().max().item() / sc
+                   for b, r, sc in zip(cpu, ref, scales)]
+        # per tensor: within 4x the CPU's own f32 error plus TOL_TRAIN_GRAD
+        limits = [F32_FACTOR * rf + TOL_TRAIN_GRAD for rf in rel_cpu]
+        for i, (rc, rf, lim) in enumerate(zip(rel_card, rel_cpu, limits)):
+            require(rc <= lim, f"train step {who} gradient {i}: card err "
+                               f"{rc}, CPU f32 err {rf} (of max |ref|)")
+        flat = lambda xs: torch.cat([x.reshape(-1) for x in xs])  # noqa: E731
+        l2_card = ((flat(got) - flat(ref)).norm() / flat(ref).norm()).item()
+        l2_cpu = ((flat(cpu) - flat(ref)).norm() / flat(ref).norm()).item()
+        require(l2_card <= 2 * l2_cpu + TOL_TRAIN_L2,
+                f"train step {who} gradients: rel L2 card {l2_card}, CPU f32 "
+                f"{l2_cpu}")
+        grad_rows[who] = {
+            "tensors": len(ref),
+            "err / max |ref|, card: median, max": (
+                float(np.median(rel_card)), max(rel_card)),
+            "cpu f32: median, max": (float(np.median(rel_cpu)),
+                                     max(rel_cpu)),
+            "rel L2, card, cpu f32": (l2_card, l2_cpu),
+            "max err / limit": max(rc / lim for rc, lim in
+                                   zip(rel_card, limits)),
+            "max card err / cpu f32 err": max(rc / max(rf, 1e-30) for rc, rf
+                                              in zip(rel_card, rel_cpu)),
+        }
+    return loss_rows, grad_rows
+
+
 def train_vs_cpu(dev, items, what=""):
     """Phase 7 (and 18): one gen_step and one gan_step of the recipe's full
     width on the card against the CPU, each from the seed's weights; then two
@@ -482,47 +551,8 @@ def train_vs_cpu(dev, items, what=""):
             losses.setdefault(label, {}).update(
                 {f"{phase} {k}": float(v) for k, v in m.items()})
             del task
-    loss_rows = {}
-    for k, ref in losses["cpu f64"].items():
-        e_card = abs(losses["card f32"][k] - ref)
-        e_cpu = abs(losses["cpu f32"][k] - ref)
-        loss_rows[k] = (e_card / abs(ref), e_cpu / abs(ref))
-        require(e_card <= F32_FACTOR * e_cpu + TOL_TRAIN_LOSS * abs(ref),
-                f"train step {k}: card err {e_card}, CPU f32 err {e_cpu}, "
-                f"f64 {ref}")
-    grad_rows = {}
-    for who, got, cpu, ref in zip(("G gen", "G gan", "D gan"),
-                                  grads["card f32"], grads["cpu f32"],
-                                  grads["cpu f64"]):
-        step_scale = max(r.abs().max().item() for r in ref)
-        scales = [max(r.abs().max().item(), 1e-6 * step_scale) for r in ref]
-        rel_card = [(a - r).abs().max().item() / sc
-                    for a, r, sc in zip(got, ref, scales)]
-        rel_cpu = [(b - r).abs().max().item() / sc
-                   for b, r, sc in zip(cpu, ref, scales)]
-        # per tensor: within 4x the CPU's own f32 error plus TOL_TRAIN_GRAD
-        limits = [F32_FACTOR * rf + TOL_TRAIN_GRAD for rf in rel_cpu]
-        for i, (rc, rf, lim) in enumerate(zip(rel_card, rel_cpu, limits)):
-            require(rc <= lim, f"train step {who} gradient {i}: card err "
-                               f"{rc}, CPU f32 err {rf} (of max |ref|)")
-        flat = lambda xs: torch.cat([x.reshape(-1) for x in xs])  # noqa: E731
-        l2_card = ((flat(got) - flat(ref)).norm() / flat(ref).norm()).item()
-        l2_cpu = ((flat(cpu) - flat(ref)).norm() / flat(ref).norm()).item()
-        require(l2_card <= 2 * l2_cpu + TOL_TRAIN_L2,
-                f"train step {who} gradients: rel L2 card {l2_card}, CPU f32 "
-                f"{l2_cpu}")
-        grad_rows[who] = {
-            "tensors": len(ref),
-            "err / max |ref|, card: median, max": (
-                float(np.median(rel_card)), max(rel_card)),
-            "cpu f32: median, max": (float(np.median(rel_cpu)),
-                                     max(rel_cpu)),
-            "rel L2, card, cpu f32": (l2_card, l2_cpu),
-            "max err / limit": max(rc / lim for rc, lim in
-                                   zip(rel_card, limits)),
-            "max card err / cpu f32 err": max(rc / max(rf, 1e-30) for rc, rf
-                                              in zip(rel_card, rel_cpu)),
-        }
+    loss_rows, grad_rows = hold_to_f64(losses, grads, ("G gen", "G gan",
+                                                        "D gan"))
     say(f"{what}train step vs CPU f64 (card f32 and CPU f32, B=2 x 16000, "
         f"gen_step and gan_step each from the seed's weights): loss rel "
         f"errs (card, cpu f32) {loss_rows}")
@@ -1753,6 +1783,448 @@ def b02_phase(dev):
                                                       "conversion": conv}
 
 
+# B02 training at egs/svcc23/baseline02/conf/taco2.yaml's width and
+# settings (TACO_CONFIG's Tacotron2, the MultiSubFreqDiscriminator's
+# 50-frame windows, the optimizers' defaults that build_b02_task shares
+# with that file, batch 16 x 400 frames); the phase split and the
+# intervals are cut to B02_STEPS gen_steps then B02_STEPS gan_steps, each
+# phase a warm-up interval of B02_LOG steps and a timed one
+B02_LOG = 2
+B02_STEPS = 2 * B02_LOG
+TB3, TF3 = 16, 400
+B02_TRAIN_CONFIG = {
+    **TACO_CONFIG,
+    "sampling_rate": 24000,
+    "hop_size": HOP,
+    "discriminator_type": "MultiSubFreqDiscriminator",
+    "discriminator_params": {"batch_max_frames": 50},
+    "generator_scheduler_params": {"step_size": 20000, "gamma": 0.5},
+    "discriminator_scheduler_params": {"step_size": 20000, "gamma": 0.5},
+    "batch_size": TB3,
+    "discriminator_train_start_steps": B02_STEPS - 1,  # then gan_step
+    "train_max_steps": 2 * B02_STEPS,
+    "log_interval_steps": B02_LOG,
+    "eval_interval_steps": 100000,
+    "save_interval_steps": 2 * B02_STEPS,
+}
+# (what it is, T, Cin, Cout, dilation) of B02 training's window convs, at
+# batch 16: the bap stream's K = 3 convs (conv3 on the T + 2 frames of the
+# K = 1, padding-1 conv2) and a FiLM net's 1-channel convs
+B02_CONV_SHAPES = [
+    ("bap conv0", TF3, 258, 86, 2),
+    ("bap conv1", TF3, 86, 43, 2),
+    ("bap conv3", TF3 + 2, 21, 3, 2),
+    ("FiLM conv", TF3, 1, 1, 1),
+]
+
+
+def b02_dataset(n=24, seed=0):
+    """In-memory utterances in B02Dataset's item layout (utt_id, wave, f0,
+    ppg, lft, lf0, vuv, mcep, bap, spk_emb), 250-460 frames each (the
+    batcher cuts them to 400), normalised features as the recipe's dumps
+    hold them."""
+    r = np.random.default_rng(seed)
+    items = []
+    for j in range(n):
+        nf = int(r.integers(250, 460))
+        f0 = np.where(r.random(nf) > 0.2, r.uniform(80, 400, nf), 0.0)
+        items.append((f"spk{j % 4}_utt{j}", np.zeros(1, np.float32),
+                      f0.astype(np.float32),
+                      r.uniform(0, 1, (nf, 256)).astype(np.float32),
+                      r.standard_normal((nf, 1)).astype(np.float32),
+                      r.standard_normal((nf, 1)).astype(np.float32),
+                      (f0 > 0).astype(np.float32)[:, None],
+                      r.standard_normal((nf, 60)).astype(np.float32),
+                      r.standard_normal((nf, 3)).astype(np.float32),
+                      r.standard_normal((1, 512)).astype(np.float32)))
+    return items
+
+
+def _draws_to(draws, dev):
+    """A step's draws (`B02TrainTask.draw`) on `dev`."""
+    def to(v):
+        if isinstance(v, dict):
+            return {k: to(u) for k, u in v.items()}
+        if isinstance(v, list):
+            return [to(u) for u in v]
+        return None if v is None else v.to(dev)
+    return to(draws)
+
+
+def b02_train_phase(dev, phases):
+    """Phase 22: B02 training at the recipe's width. (1) one gen_step and
+    one gan_step from the seed's weights on 2 x 400 frames, f32 on the card
+    against the CPU in f32 and f64 (phase 7's rule), on given draws; (2) two
+    gan_steps from one state on the recipe's batch, f32 and bf16, gradients
+    bit for bit (cuDNN deterministic); (3) `Trainer.run`, B02_STEPS gen and
+    B02_STEPS gan steps on 16 x 400 frames, bf16 (packed wire) and f32,
+    with the switch off and, after the "auto" probe, on: finite losses,
+    rates, launches per step, peak memory, the checkpoint reloaded into a
+    fresh task and into `load_acoustic_model`; the busy share of one bf16
+    gan_step; (4) #2-#6 at the bap stream's training shapes against their
+    plain versions, with device times, cuDNN's and the bound."""
+    from svcc23_fastsvc_tpu_torch.bin.common import deterministic_cudnn
+    from svcc23_fastsvc_tpu_torch.config import build_b02_task
+    from svcc23_fastsvc_tpu_torch.data.collate import B02Batcher
+    from svcc23_fastsvc_tpu_torch.data.wire import WirePacker, to_device
+    from svcc23_fastsvc_tpu_torch.ops.conv import (
+        decide_conv_lowering,
+        set_pallas_conv_mode,
+    )
+    from svcc23_fastsvc_tpu_torch.ops.fused_conv import (
+        bwd_plan,
+        fused_conv1d,
+        fused_conv1d_bwd,
+        fused_conv1d_bwd_plain,
+        fused_conv1d_plain,
+    )
+    from svcc23_fastsvc_tpu_torch.ops.window_conv import (
+        fwd_plan,
+        wgrad_plan,
+        window_conv,
+        window_conv_dx,
+        window_conv_dx_plain,
+        window_conv_plain,
+        window_conv_wgrad,
+        window_conv_wgrad_plain,
+    )
+    from svcc23_fastsvc_tpu_torch.train.checkpoint import (
+        load_acoustic_model,
+        load_checkpoint,
+    )
+    from svcc23_fastsvc_tpu_torch.train.loop import Trainer
+
+    F = torch.nn.functional
+    items = b02_dataset()
+    deterministic_cudnn()
+    try:
+        # (1) one step of each phase against the CPU, f32 and f64
+        t = time.perf_counter()
+        host = B02Batcher(items, batch_size=2, max_frames=TF3,
+                          seed=5).sample_batch()
+        cpu_batch = to_device(host, "cpu")
+        draw_task = build_b02_task(B02_TRAIN_CONFIG, device="cpu", seed=3)
+        gen = torch.Generator().manual_seed(6)
+        draws = {p: draw_task.draw(p, cpu_batch, gen) for p in ("gen", "gan")}
+        del draw_task
+        losses, grads = {}, {}
+        for phase in ("gen", "gan"):
+            for label, where, dtype in (("cpu f64", "cpu", torch.float64),
+                                        ("cpu f32", "cpu", torch.float32),
+                                        ("card f32", dev, torch.float32)):
+                task = build_b02_task(B02_TRAIN_CONFIG, device=where, seed=3)
+                task.generator.to(dtype)
+                task.discriminator.to(dtype)
+                log = grads.setdefault(label, [])
+                task.g_opt.step = recording(task.g_opt.step, log)
+                task.d_opt.step = recording(task.d_opt.step, log)
+                b = {k: v.to(dtype) if v.is_floating_point() else v
+                     for k, v in to_device(host, where).items()}
+                m = getattr(task, f"{phase}_step")(
+                    b, _draws_to(draws[phase], where))
+                params = [p.detach() for mod in (task.generator,
+                                                 task.discriminator)
+                          for p in mod.parameters()]
+                require(all(torch.isfinite(p).all().item() for p in params),
+                        f"B02 updated weights, {phase} {label}: not finite")
+                losses.setdefault(label, {}).update(
+                    {f"{phase} {k}": float(v) for k, v in m.items()})
+                del task
+        loss_rows, grad_rows = hold_to_f64(losses, grads,
+                                           ("G gen", "G gan", "D gan"))
+        say(f"B02 train step vs CPU f64 (card f32 and CPU f32, B=2 x {TF3} "
+            f"frames, gen_step and gan_step each from the seed's weights, "
+            f"given draws): loss rel errs (card, cpu f32) {loss_rows}")
+        say(f"  gradients: {grad_rows}; card losses {losses['card f32']}")
+        phases["b02_train_vs_cpu_s"] = time.perf_counter() - t
+
+        # (2) two gan_steps from one state, bit for bit
+        t = time.perf_counter()
+        rhost = B02Batcher(items, batch_size=TB3, max_frames=TF3,
+                           seed=3).sample_batch()
+        rbatch = to_device(rhost, dev)
+        repeat = {}
+        for dt_name in ("float32", "bfloat16"):
+            runs = []
+            for _ in range(2):
+                task = build_b02_task(
+                    {**B02_TRAIN_CONFIG, "compute_dtype": dt_name},
+                    device=dev, seed=3)
+                log = []
+                task.g_opt.step = recording(task.g_opt.step, log)
+                task.d_opt.step = recording(task.d_opt.step, log)
+                task.gan_step(rbatch)
+                runs.append(log)
+                del task
+            differ = {who: sum(not torch.equal(a, b) for a, b in zip(ga, gb))
+                      for who, ga, gb in zip(("G", "D"), *runs)}
+            repeat[dt_name] = differ
+            require(differ == {"G": 0, "D": 0},
+                    f"B02 gan_step {dt_name} twice from one state: gradient "
+                    f"tensors that differ {differ}")
+        say(f"B02 gan_step twice from one state (B={TB3} x {TF3}): gradient "
+            f"tensors that differ {repeat}")
+        phases["b02_train_repeat_s"] = time.perf_counter() - t
+
+        # (3) Trainer.run, switch off then on
+        t = time.perf_counter()
+        counters = (window_conv, window_conv_dx, window_conv_wgrad,
+                    fused_conv1d, fused_conv1d_bwd)
+        names = ", ".join(c.__name__ for c in counters)
+        paths, rates_out = {}, {}
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_b02_")
+        try:
+            for switch in ("0", "auto"):
+                set_pallas_conv_mode(switch)
+                lowering = decide_conv_lowering(dev)
+                require(lowering == ("window" if switch == "0"
+                                     else "fused+window"),
+                        f"B02 train switch {switch}: lowering {lowering}")
+                path = "b02_train" if switch == "0" else "b02_train_fused"
+                for c in counters:
+                    c.launches = 0
+                step_launches = {}
+                for dt_name, wire in (("bfloat16", "packed"),
+                                      ("float32", "f32")):
+                    cfg = {**B02_TRAIN_CONFIG, "compute_dtype": dt_name,
+                           "wire_format": wire, "steps_per_call": 1}
+                    task = build_b02_task(cfg, device=dev, seed=7)
+                    log = []
+                    task.gen_step = counted(task.gen_step, counters, log)
+                    task.gan_step = counted(task.gan_step, counters, log)
+                    batcher = B02Batcher(items, batch_size=TB3,
+                                         max_frames=TF3, seed=1)
+                    outdir = os.path.join(workdir, f"{path}_{dt_name}")
+                    trainer = Trainer(task, batcher, config=cfg,
+                                      outdir=outdir)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    trainer.run()
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated()
+                    rates = trainer.history
+                    require(all(np.isfinite(v) for x in rates
+                                for v in x.values()),
+                            f"B02 {path} {dt_name}: non-finite {rates}")
+                    n_steps = 2 * B02_STEPS
+                    require(task.step == n_steps and len(rates) == 4,
+                            f"B02 {path} {dt_name}: {task.step} steps, "
+                            f"{len(rates)} logged")
+                    ckpt = os.path.join(outdir,
+                                        f"checkpoint-{n_steps}steps.pkl")
+                    fresh = build_b02_task(cfg, device=dev, seed=99)
+                    load_checkpoint(ckpt, fresh)
+                    for a, b in ((task.generator, fresh.generator),
+                                 (task.discriminator, fresh.discriminator)):
+                        for (k, v), w in zip(a.state_dict().items(),
+                                             b.state_dict().values()):
+                            require(torch.equal(v, w),
+                                    f"B02 checkpoint reload: {k}")
+                    require(fresh.step == n_steps
+                            and fresh.g_opt.count == n_steps
+                            and fresh.d_opt.count == n_steps // 2
+                            and torch.equal(fresh.rng.get_state(),
+                                            task.rng.get_state()),
+                            "B02 checkpoint reload: counts, draws")
+                    model, steps = load_acoustic_model(ckpt, cfg, device=dev)
+                    want = task.generator.state_dict()
+                    got = model.state_dict()
+                    require(steps == n_steps and set(got) == set(want)
+                            and all(torch.equal(v, want[k])
+                                    for k, v in got.items()),
+                            "B02 checkpoint: load_acoustic_model differs")
+                    for phase, warm, timed in (("gen", 0, 1), ("gan", 2, 3)):
+                        rates_out[f"{path} {phase} {dt_name}"] = {
+                            "steps_per_s": rates[timed]["steps_per_s"],
+                            "frames_per_s": rates[timed]["frames_per_s"],
+                            "warm_up_interval_steps_per_s":
+                                rates[warm]["steps_per_s"],
+                            "data_wait_s": rates[timed]["data_wait_s"],
+                            "step_wait_s": rates[timed]["step_wait_s"],
+                            "drain_s": rates[timed]["drain_s"],
+                            "peak_mem_gib": peak / 2 ** 30,
+                            f"launches_per_step ({names})":
+                                log[B02_LOG * timed],
+                        }
+                    step_launches[dt_name] = log
+                    say(f"B02 train {path} {dt_name} ({wire} wire): mean "
+                        f"losses to step " + "; ".join(
+                            f"{x['step']}: mse {x['mse_loss']:.4f}"
+                            + (f" D {x['discriminator_loss']:.4f}"
+                               if "discriminator_loss" in x else "")
+                            for x in rates))
+                    del task, fresh, trainer, model
+                    torch.cuda.empty_cache()
+                for dt_name, log in step_launches.items():
+                    require(all(row == log[0] for row in log[:B02_STEPS])
+                            and all(row == log[B02_STEPS]
+                                    for row in log[B02_STEPS:]),
+                            f"B02 {path} {dt_name}: launches differ between "
+                            f"steps of a phase: {log}")
+                    # the kernels of each path, in every step: switch off
+                    # #2 #3 #4; on, #5 #6 (and conv0's #2 and #4: 258
+                    # channels are past the fused conv's 192)
+                    want_on = (0, 2) if switch == "0" else (0, 2, 3, 4)
+                    for row in (log[0], log[B02_STEPS]):
+                        require(all(row[i] > 0 for i in want_on),
+                                f"B02 {path} {dt_name}: a kernel of the "
+                                f"path was not launched in a step: {row} "
+                                f"({names})")
+                    if switch == "0":
+                        require(log[0][1] > 0 and log[0][3:] == [0, 0],
+                                f"B02 {path}: launches {log[0]} ({names})")
+                paths[path] = {c.__name__: c.launches for c in counters}
+                say(f"B02 {path} main path: launches {paths[path]}")
+        finally:
+            set_pallas_conv_mode("0")
+            shutil.rmtree(workdir, ignore_errors=True)
+        for k, v in rates_out.items():
+            say(f"B02 train {k}: {v}")
+
+        # busy share of one bf16 gan_step (switch off)
+        cfg = {**B02_TRAIN_CONFIG, "compute_dtype": "bfloat16"}
+        task = build_b02_task(cfg, device=dev, seed=7)
+        pbatch = to_device(WirePacker(hop_size=HOP)(rhost), dev)
+        task.gan_step(pbatch)
+        torch.cuda.synchronize()
+        t_wall = time.perf_counter()
+        for _ in range(2):
+            task.gan_step(pbatch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_wall) * 1e3 / 2
+        per_kernel = device_ms(lambda: task.gan_step(pbatch), n=1,
+                               host_ops=False)
+        busy = sum(per_kernel.values())
+        require(busy > 0, "profile B02 gan_step: no device time recorded")
+        say(f"profile B02 gan_step bf16 (B={TB3} x {TF3}): wall "
+            f"{wall_ms:.3f} ms/step, kernels {busy:.3f} ms, busy "
+            f"{busy / wall_ms:.1%}")
+        for kname, ms in list(per_kernel.items())[:12]:
+            say(f"  {ms:8.4f} ms {ms / busy:6.1%}  {kname[:110]}")
+        del task
+        phases["b02_train_s"] = time.perf_counter() - t
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # (4) #2-#6 at the bap stream's training shapes
+    t = time.perf_counter()
+    rows = []
+    kgen = torch.Generator(device=dev).manual_seed(22)
+    launches = {p: n for p, n in paths.items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for what, T, cin, cout, dil in B02_CONV_SHAPES:
+            x = torch.randn((TB3, T, cin), generator=kgen, device=dev).to(
+                dtype)
+            g = torch.randn((TB3, T, cout), generator=kgen, device=dev).to(
+                dtype)
+            w = (torch.randn((3, cin, cout), generator=kgen, device=dev)
+                 / (3 * cin) ** 0.5).to(dtype)
+            b = (0.1 * torch.randn((cout,), generator=kgen,
+                                   device=dev)).to(dtype)
+            xt, gt = (v.transpose(1, 2).contiguous() for v in (x, g))
+            wt = w.permute(2, 1, 0).contiguous()
+            esize = x.element_size()
+            ops = 2 * TB3 * T * 3 * cin * cout
+            shape = f"({TB3},{T},{cin})->{cout} d={dil}"
+            fwd_bytes = (x.numel() + w.numel() + b.numel()
+                         + TB3 * T * cout) * esize
+            dx_bytes = (g.numel() + w.numel() + x.numel()) * esize
+            wg_bytes = (x.numel() + g.numel()) * esize + (w.numel() + cout) * 4
+            bwd_bytes = ((2 * x.numel() + g.numel() + w.numel()) * esize
+                         + (w.numel() + cout) * 4)
+            # conv0's input (the features) takes no gradient: no dx there
+            cases = [c for c in [
+                ("window_conv", "window_conv.cu", "pallas_window_conv.py:155",
+                 "b02_train", fwd_bytes, ops,
+                 lambda: window_conv(x, w, b, dil, None),
+                 lambda: window_conv_plain(x, w, b, dil, None),
+                 lambda: F.conv1d(xt, wt, b, padding=dil, dilation=dil),
+                 "F.conv1d", fwd_plan(dtype, TB3, T, cin, cout)["variant"]),
+                ("window_conv_dx", "window_conv_grad.cu",
+                 "pallas_window_conv.py:252", "b02_train", dx_bytes, ops,
+                 lambda: window_conv_dx(g, w, dil),
+                 lambda: window_conv_dx_plain(g, w, dil),
+                 lambda: torch.nn.grad.conv1d_input(
+                     xt.shape, wt, gt, padding=dil, dilation=dil),
+                 "torch.nn.grad.conv1d_input",
+                 fwd_plan(dtype, TB3, T, cout, cin)["variant"]),
+                ("window_conv_wgrad", "window_conv_grad.cu",
+                 "pallas_window_conv.py:203", "b02_train", wg_bytes, ops,
+                 lambda: window_conv_wgrad(x, g, 3, dil, None),
+                 lambda: window_conv_wgrad_plain(x, g, 3, dil, None),
+                 lambda: torch.nn.grad.conv1d_weight(
+                     xt, wt.shape, gt, padding=dil, dilation=dil),
+                 "torch.nn.grad.conv1d_weight",
+                 wgrad_plan(dtype, TB3, T, 3, cin, cout)["variant"]),
+            ] if not (c[0] == "window_conv_dx" and what == "bap conv0")]
+            if max(cin, cout) <= 192:  # the fused conv's width
+                cases += [
+                    ("fused_conv1d", "fused_conv.cu", "pallas_conv.py:219",
+                     "b02_train_fused", fwd_bytes, ops,
+                     lambda: fused_conv1d(x, w, b, dil, dil, dil, None),
+                     lambda: fused_conv1d_plain(x, w, b, dil, dil, dil, None),
+                     lambda: F.conv1d(xt, wt, b, padding=dil, dilation=dil),
+                     "F.conv1d", fwd_plan(dtype, TB3, T, cin,
+                                          cout)["variant"]),
+                    ("fused_conv1d_bwd", "fused_conv.cu", "pallas_conv.py:252",
+                     "b02_train_fused", bwd_bytes, 2 * ops,
+                     lambda: fused_conv1d_bwd(x, g, w, dil, dil, dil, None),
+                     lambda: fused_conv1d_bwd_plain(x, g, w, dil, dil, dil,
+                                                    None),
+                     lambda: torch.ops.aten.convolution_backward(
+                         gt, xt, wt, [cout], [1], [dil], [dil], False, [0],
+                         1, [True, True, True]),
+                     "torch.ops.aten.convolution_backward, one call",
+                     bwd_plan(dtype, TB3, T, 3, cin, cout)["variant"]),
+                ]
+            for (name, src, line, path, nbytes, n_ops, fn, plain, lib,
+                 lib_name, variant) in cases:
+                got, want = fn(), plain()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                torch.cuda.synchronize()
+                err = 0.0
+                for a, c in zip(got, want):
+                    if a is None:
+                        continue
+                    e = (a.float() - c.float()).abs().max().item()
+                    scale = c.float().abs().max().item()
+                    require(torch.isfinite(a).all().item(),
+                            f"{name} {dt} {what}: non-finite")
+                    require(e <= TOL_CONV[dtype] * scale,
+                            f"{name} {dt} {what}: max err {e} > "
+                            f"{TOL_CONV[dtype]} x {scale}")
+                    err = max(err, e)
+                b_ms, b_by = bound(nbytes, n_ops, dtype)
+                row = {
+                    "name": f"{name} {dt} B02 train {what} {shape}",
+                    "route": "cuda",
+                    "source": f"svcc23_fastsvc_tpu_torch/csrc/{src}",
+                    "replaces": f"svcc23_fastsvc_tpu/ops/{line}",
+                    "launches": launches[path][name],
+                    "max_abs_err": err,
+                    "ms": cuda_ms(fn),
+                    "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+                    "bound_ms": b_ms,
+                    "bound_by": b_by,
+                    "library_ms": cuda_ms(lib),
+                    "library": lib_name,
+                    "variant": variant,
+                    "device_ms": queued_ms(fn),
+                    "library_device_ms": queued_ms(lib),
+                }
+                rows.append(row)
+                say(f"{row['name']}: max err {err:.3e}; {row['ms']:.4f} ms "
+                    f"(plain {row['plain_ms']:.4f}, library "
+                    f"{row['library_ms']:.4f}, bound {b_ms:.4f} by {b_by}); "
+                    f"{variant}, device {row['device_ms']:.4f} ms, library "
+                    f"device {row['library_device_ms']:.4f} ms")
+            del x, g, w, b, xt, gt, wt
+    phases["b02_train_kernels_s"] = time.perf_counter() - t
+    return rows, paths
+
+
 def main():
     # 1. device
     require(torch.cuda.is_available(), "no CUDA device: chip_smoke.py runs "
@@ -2180,9 +2652,15 @@ def main():
     phases["train_k_steps_s"] = time.perf_counter() - t
     say(f"phase 21 (K = {KSTEPS} steps a call): "
         f"{phases['train_k_steps_s']:.1f} s")
+
+    # 22. B02 acoustic-model training at the recipe's width
+    t = time.perf_counter()
+    b02_rows, b02_paths = b02_train_phase(dev, phases)
+    kernels += b02_rows
+    say(f"phase 22 (B02 training): {time.perf_counter() - t:.1f} s")
     paths = {"decode": launches, "train": train_launches, **voc_launches,
              "decode_chain": down_launches, **fused_paths,
-             "train_k_steps": k_launches}
+             "train_k_steps": k_launches, **b02_paths}
     for row in kernels:
         name = row["name"].split(" ")[0]
         row["launches_by_path"] = {p: n.get(name, 0) for p, n in paths.items()}

@@ -1,17 +1,19 @@
 """Carry weights from the JAX package's layout to the port.
 
 `generator_state_dict_from_jax`, `melgan_msd_state_dict_from_jax`,
-`hnusfgan_state_dict_from_jax` and `tacotron2_state_dict_from_jax` are the
-inverses of the JAX package's `compat/torch_weights.py::
-convert_fastsvc_generator`, `convert_melgan_msd`, `convert_hnusfgan` and
-`convert_tacotron2`; `downsample_block_state_dict_from_jax` carries one
-of the generator's DownsampleBlocks. Each takes a JAX param pytree as
-numpy arrays, either in weight-norm form ({"v", "g", "b"} leaves, WIO v) or
-folded ({"w", "b"}), and returns a state dict with the reference torch keys
-that `models.fastsvc.FastSVCGenerator`, `DownsampleBlock`,
-`MelGANMultiScaleDiscriminator`, `models.hnusfgan.HNUSFGANGenerator` or
-`models.tacotron2.Tacotron2` loads (built with `use_weight_norm` matching the form). No JAX import:
-the arrays only need `numpy.asarray`.
+`hnusfgan_state_dict_from_jax`, `tacotron2_state_dict_from_jax` and
+`subfreq_discriminator_state_dict_from_jax` are the inverses of the JAX
+package's `compat/torch_weights.py::convert_fastsvc_generator`,
+`convert_melgan_msd`, `convert_hnusfgan`, `convert_tacotron2` and
+`convert_subfreq_discriminator`; `downsample_block_state_dict_from_jax`
+carries one of the generator's DownsampleBlocks. Each takes a JAX param
+pytree as numpy arrays, either in weight-norm form ({"v", "g", "b"} leaves,
+WIO v) or folded ({"w", "b"}), and returns a state dict with the reference
+torch keys that `models.fastsvc.FastSVCGenerator`, `DownsampleBlock`,
+`MelGANMultiScaleDiscriminator`, `models.hnusfgan.HNUSFGANGenerator`,
+`models.tacotron2.Tacotron2` or `MultiSubFreqDiscriminator` loads (built
+with `use_weight_norm` matching the form). No JAX import: the arrays only
+need `numpy.asarray`.
 """
 
 from __future__ import annotations
@@ -168,4 +170,22 @@ def tacotron2_state_dict_from_jax(params) -> dict:
                 _conv(sd, f"{name}_film_net.{key}", p)
     if "spk_emb_projection" in params:
         _linear_sd(sd, "spk_emb_projection", params["spk_emb_projection"])
+    return sd
+
+
+def subfreq_discriminator_state_dict_from_jax(params) -> dict:
+    """JAX MultiSubFreqDiscriminator params -> the port's `state_dict`:
+    HWIO conv2d weights as torch's (O, I, kh, kw); each band's convs under
+    `{band}_discriminator.layers.j.0` but the last, a bare conv at
+    `layers.j`."""
+    sd = {}
+    for band in ("low", "mid", "high"):
+        layers = params[band]["layers"]
+        for j, p in enumerate(layers):
+            pre = f"{band}_discriminator.layers.{j}"
+            if j < len(layers) - 1:
+                pre += ".0"
+            sd[f"{pre}.weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
+            if "b" in p:
+                sd[f"{pre}.bias"] = _t(p["b"])
     return sd

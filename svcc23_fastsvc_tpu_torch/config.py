@@ -1,12 +1,12 @@
 """YAML experiment config: load, dump, and build the models and the train task.
 
 Counterpart of `svcc23_fastsvc_tpu/config.py` for the keys of the recipe's
-conf/fastsvc.yaml that decode and training read, and of
+conf/fastsvc.yaml that decode and training read, of
 `svcc23_fastsvc_tpu/bin/synthesize_b02.py::build_vocoder` for the B02
-vocoder's config.yml, and of the acoustic model that
-`svcc23_fastsvc_tpu/bin/train_b02.py::build_b02_task` builds for the B02
-Tacotron2's. The merged FastSVC config is dumped into the experiment dir
-as config.yml, which decode reads back.
+vocoder's config.yml, and of `svcc23_fastsvc_tpu/bin/train_b02.py::
+build_b02_task` for the B02 Tacotron2's (conf/taco2.yaml): the acoustic
+model, its discriminator and its train task. The merged config is dumped
+into the experiment dir as config.yml, which decode reads back.
 `yaml` is imported only when a file is read or written, so the package
 imports where PyYAML is missing.
 """
@@ -93,13 +93,17 @@ def build_generator(cfg: dict, *, device=None, generator=None, **kw):
 
 
 def build_discriminator(cfg: dict, *, device=None, generator=None):
-    """MelGANMultiScaleDiscriminator from `discriminator_params`."""
+    """MelGANMultiScaleDiscriminator (FastSVC) or MultiSubFreqDiscriminator
+    (B02) from `discriminator_type` and `discriminator_params`."""
     from .models.fastsvc import MelGANMultiScaleDiscriminator
+    from .models.tacotron2 import MultiSubFreqDiscriminator
 
     dtype = cfg.get("discriminator_type", "MelGANMultiScaleDiscriminator")
-    if dtype != "MelGANMultiScaleDiscriminator":
+    classes = {"MelGANMultiScaleDiscriminator": MelGANMultiScaleDiscriminator,
+               "MultiSubFreqDiscriminator": MultiSubFreqDiscriminator}
+    if dtype not in classes:
         raise KeyError(f"discriminator_type {dtype!r} is not ported yet")
-    return MelGANMultiScaleDiscriminator.from_config(
+    return classes[dtype].from_config(
         cfg.get("discriminator_params", {}), device=device,
         generator=generator)
 
@@ -209,6 +213,46 @@ def build_train_task(cfg: dict, *, device="cuda", seed: int = 0):
             tuple(stft["fft_sizes"]), tuple(stft["hop_sizes"]),
             tuple(stft["win_lengths"])),
         lambda_adv=cfg.get("lambda_adv", 2.5),
+        compute_dtype=parse_compute_dtype(cfg.get("compute_dtype")),
+        rng=torch.Generator(device=device).manual_seed(seed + 1),
+    )
+
+
+def build_b02_task(cfg: dict, *, device="cuda", seed: int = 0):
+    """The B02 acoustic model's train task, as the JAX package's
+    `bin/train_b02.py::build_b02_task` builds it: the Tacotron2 from
+    `generator_params` (`build_acoustic_model`) and the
+    MultiSubFreqDiscriminator from `discriminator_params` (weights from
+    `seed`), on `device`, with B02's own optimizer defaults (grad norm 1
+    for both, no weight decay) and lambda_l1, lambda_adv 1. Params,
+    optimizer state and losses are f32; `compute_dtype` bfloat16 runs the
+    generator in bf16 (B02TrainTask)."""
+    from .models.tacotron2 import MultiSubFreqDiscriminator
+    from .train.b02 import B02TrainTask
+    from .train.state import RefRAdam
+
+    device = torch.device(device)
+    init = torch.Generator().manual_seed(seed)
+    gen = build_acoustic_model(cfg, generator=init).to(device)
+    dis = MultiSubFreqDiscriminator.from_config(
+        cfg.get("discriminator_params", {}), generator=init).to(device)
+
+    def optimizer(who, params):
+        opt = cfg.get(f"{who}_optimizer_params", {})
+        sch = cfg.get(f"{who}_scheduler_params", {})
+        return RefRAdam(params, lr=opt.get("lr", 1e-3),
+                        eps=opt.get("eps", 1e-6),
+                        grad_norm=cfg.get(f"{who}_grad_norm", 1),
+                        scheduler_step_size=sch.get("step_size", 100000),
+                        scheduler_gamma=sch.get("gamma", 0.5))
+
+    return B02TrainTask(
+        generator=gen,
+        discriminator=dis,
+        g_opt=optimizer("generator", gen.parameters()),
+        d_opt=optimizer("discriminator", dis.parameters()),
+        lambda_l1=cfg.get("lambda_l1", 1.0),
+        lambda_adv=cfg.get("lambda_adv", 1.0),
         compute_dtype=parse_compute_dtype(cfg.get("compute_dtype")),
         rng=torch.Generator(device=device).manual_seed(seed + 1),
     )

@@ -1,14 +1,21 @@
-"""Fixed-shape random-crop batches for GAN training.
+"""Fixed-shape training batches: random crops for FastSVC, padded
+utterances for the B02 acoustic model.
 
-Counterpart of `svcc23_fastsvc_tpu/data/collate.py::FastSVCBatcher` (numpy
-only): per step, `batch_size` utterances drawn with replacement and a
-frame-aligned random window of `batch_length` samples from each, as one
-batch dict of static shapes. The sine excitation is not made here: the
-train step makes it on the device from the window's F0. Crops come from a
+Counterpart of `svcc23_fastsvc_tpu/data/collate.py::FastSVCBatcher` and
+`B02Batcher` (numpy only). FastSVCBatcher: per step, `batch_size`
+utterances drawn with replacement and a frame-aligned random window of
+`batch_length` samples from each, as one batch dict of static shapes.
+The sine excitation is not made here: the train step makes it on the
+device from the window's F0. Crops come from a
 seeded numpy Generator, so a run is reproducible.
 
 Items are the port's `FastSVCDataset` layout: (utt_id, wave (T,), f0 (T',),
 ppg (T', C), lft (T,), spk_emb (1, S)).
+
+B02Batcher: per step, `batch_size` utterances drawn with replacement, each
+padded (or cut) to `max_frames` with its length in "lengths"; items are
+the port's `B02Dataset` layout (utt_id, wave, f0, ppg, lft, lf0, vuv,
+mcep, bap, spk_emb), the targets mcep | bap.
 """
 
 from __future__ import annotations
@@ -130,6 +137,50 @@ class FastSVCBatcher:
         if self.use_spk_emb:
             out["spk_emb"] = np.stack(embs)
         return out
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.sample_batch()
+
+
+class B02Batcher:
+    """Infinite iterator of fixed-shape B02 batches (the reference's sort
+    and pad collater, train_b02.py:425-474, at a static shape): ppg, lft,
+    lf0, spk_emb, targets and lengths; the masked loss and the
+    length-aware BLSTM make the padding inert. The same numpy draws as the
+    JAX package's batcher from the same seed."""
+
+    def __init__(self, dataset, *, batch_size: int = 16,
+                 max_frames: int = 400, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.max_frames = max_frames
+        self.rng = np.random.default_rng(seed)
+
+    def sample_batch(self) -> Dict[str, np.ndarray]:
+        B, F = self.batch_size, self.max_frames
+        picks = self.rng.choice(len(self.dataset), size=B, replace=True)
+        _, _, _, ppg, _, _, _, mcep, bap, emb = self.dataset[picks[0]]
+        batch = {
+            "ppg": np.zeros((B, F, ppg.shape[-1]), np.float32),
+            "lft": np.zeros((B, F, 1), np.float32),
+            "lf0": np.zeros((B, F, 1), np.float32),
+            "spk_emb": np.zeros((B, np.asarray(emb).size), np.float32),
+            "targets": np.zeros((B, F, mcep.shape[-1] + bap.shape[-1]),
+                                np.float32),
+            "lengths": np.zeros((B,), np.int32),
+        }
+        for bi, idx in enumerate(picks):
+            _, _, _, ppg, lft, lf0, _, mcep, bap, emb = self.dataset[idx]
+            L = min(len(ppg), len(mcep), len(lf0), len(lft), F)
+            batch["ppg"][bi, :L] = ppg[:L]
+            batch["lft"][bi, :L] = np.asarray(lft).reshape(-1, 1)[:L]
+            batch["lf0"][bi, :L] = np.asarray(lf0).reshape(-1, 1)[:L]
+            batch["spk_emb"][bi] = np.asarray(emb, np.float32).reshape(-1)
+            batch["targets"][bi, :L] = np.concatenate([mcep[:L], bap[:L]],
+                                                      axis=-1)
+            batch["lengths"][bi] = L
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         while True:

@@ -9,4 +9,8 @@ from .fastsvc import (  # noqa: F401
     UpsampleBlock,
 )
 from .hnusfgan import HNUSFGANGenerator  # noqa: F401
-from .tacotron2 import Tacotron2  # noqa: F401
+from .tacotron2 import (  # noqa: F401
+    MultiSubFreqDiscriminator,
+    SubFreqDiscriminator,
+    Tacotron2,
+)

@@ -10,6 +10,7 @@ DownsampleBlock).
 from .conv import (  # noqa: F401
     avg_pool1d,
     conv1d,
+    conv2d,
     conv_weight,
     edge_pad1d,
     fold_weight_norm,

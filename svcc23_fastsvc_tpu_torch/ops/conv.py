@@ -158,7 +158,28 @@ def conv1d(x, weight, bias=None, *, stride: int = 1, padding=0,
     return out.transpose(1, 2)
 
 
+class _LeakyReLU(torch.autograd.Function):
+    """F.leaky_relu with the JAX package's derivative: 1 at x == 0."""
+
+    @staticmethod
+    def forward(ctx, x, slope):
+        ctx.save_for_backward(x)
+        ctx.slope = slope
+        return F.leaky_relu(x, slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, g * ctx.slope), None
+
+
 def leaky_relu(x, negative_slope: float = 0.2):
+    """where(x >= 0, x, x * slope), the JAX package's `leaky_relu`. Its
+    derivative at 0 is 1, where torch's F.leaky_relu takes the slope; the
+    two differ wherever an input is exactly 0, as at the padded frames of
+    a zero-bias conv, so with grad enabled the backward is JAX's."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _LeakyReLU.apply(x, negative_slope)
     return F.leaky_relu(x, negative_slope)
 
 
@@ -234,3 +255,15 @@ def linear(x, params):
     """x @ w (+ b) with w stored (in, out), as in the JAX package."""
     out = x @ params["w"]
     return out + params["b"] if "b" in params else out
+
+
+def conv2d(x, weight, bias=None, *, stride=1, padding=0, dilation=1,
+           groups: int = 1):
+    """2-D conv on NHWC (B, H, W, C_in) with an HWIO (kh, kw, C_in/groups,
+    C_out) weight, on `F.conv2d` (cuDNN on the card): the JAX package
+    computes its `conv2d` outside any Pallas kernel. `padding` is an int or
+    a pair, symmetric on each axis."""
+    out = F.conv2d(x.permute(0, 3, 1, 2), weight.permute(3, 2, 0, 1), bias,
+                   stride=stride, padding=padding, dilation=dilation,
+                   groups=groups)
+    return out.permute(0, 2, 3, 1)

@@ -1,0 +1,203 @@
+"""B02 acoustic-model train step (Tacotron2 + MultiSubFreqDiscriminator).
+
+Counterpart of `svcc23_fastsvc_tpu/train/b02.py::B02TrainTask`. The recipe
+trains in two phases split at `discriminator_train_start_steps`:
+
+  `gen_step`  G update on the masked MSE of the teacher-forced mcep | bap;
+  `gan_step`  G update on MSE + lambda_adv * adv(D(pred)), then pred made
+              again by the UPDATED G in train mode (no grad) and a D update
+              on the real | fake LSGAN losses over random 50-frame windows.
+
+Two reference behaviours are kept exactly, as the JAX task keeps them:
+
+* in the G update the discriminator's input is detached (reference
+  train_b02.py:201), so the adversarial term is logged but gives G no
+  gradient;
+* the batch norms' running statistics advance twice in a `gan_step`: once
+  in the G step and once in the train-mode forward of the updated G
+  before the D update. They live in the generator's BatchNorm1d buffers,
+  chain from step to step with momentum 0.1, and are written back after
+  each forward (`Tacotron2.set_bn_state`); eval and decode read them.
+
+The task holds the models, their optimizers (`train.state.RefRAdam`), the
+step count and the generator of its random draws (dropout keep masks,
+window starts); each step updates them in place and returns its metrics
+as 0-d device tensors. A step takes its draws from an explicit `draws`
+argument (see `draw`), which the tests fill with JAX's, or from that
+generator.
+
+bf16 follows the JAX package's `_cast`: parameters, optimizer state and
+losses stay f32, the generator's parameters and the f32 inputs are cast
+to `compute_dtype`, and the batch-norm statistics stay f32 (they are
+buffers, not parameters). The discriminator runs in f32, on f32 inputs,
+as JAX runs it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, ClassVar
+
+import torch
+from torch import nn
+
+from ..losses import (
+    discriminator_adversarial_loss,
+    generator_adversarial_loss,
+    masked_mse_loss,
+)
+
+
+def _wide(t):
+    """f32 from a compute dtype; f64 stays f64 (a CPU reference in double)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+@dataclass
+class B02TrainTask:
+    generator: nn.Module  # models.tacotron2.Tacotron2
+    discriminator: nn.Module  # models.tacotron2.MultiSubFreqDiscriminator
+    g_opt: Any
+    d_opt: Any
+    lambda_l1: float = 1.0
+    lambda_adv: float = 1.0
+    adv_loss_type: str = "mse"
+    compute_dtype: Any = None  # torch.bfloat16 for bf16 compute
+    rng: Any = None  # torch.Generator of the random draws
+    step: int = 0
+
+    # the reference wrapper's prefix of the generator's checkpoint keys
+    # (`train.checkpoint`), and the name of the draws' generator state there
+    generator_prefix: ClassVar[str] = "acoustic_network."
+    rng_key: ClassVar[str] = "draws"
+
+    @property
+    def device(self):
+        return next(self.generator.parameters()).device
+
+    # -- pieces ----------------------------------------------------------
+
+    def _cast(self, x):
+        if (self.compute_dtype is None or x is None
+                or x.dtype != torch.float32):
+            return x
+        return x.to(self.compute_dtype)
+
+    def _apply_generator(self, *args, **kwargs):
+        """The generator with its f32 parameters cast to compute_dtype (its
+        batch-norm buffers stay f32)."""
+        if self.compute_dtype is None:
+            return self.generator(*args, **kwargs)
+        params = {n: self._cast(p)
+                  for n, p in self.generator.named_parameters()}
+        return torch.func.functional_call(self.generator, params, args,
+                                          kwargs)
+
+    def draw(self, phase: str, batch: dict, generator=None) -> dict:
+        """The random draws of one step of `phase` from `generator` (the
+        task's by default): "g" the generator's dropout masks
+        (`Tacotron2.train_draws`), and for "gan" also "d_g" (window starts
+        of the logged adversarial term), "g2" (the masks of the second,
+        updated-G forward) and "d_real", "d_fake" (the D update's window
+        starts). "eval" draws the prenet's masks only."""
+        rng = self.rng if generator is None else generator
+        B, T = batch["ppg"].shape[:2]
+        dev = batch["ppg"].device
+
+        def masks(train=True):
+            return self.generator.train_draws(B, T, train=train,
+                                              generator=rng, device=dev)
+
+        def starts():
+            return self.discriminator.window_starts(batch["lengths"],
+                                                    generator=rng)
+
+        if phase == "eval":
+            return {"g": masks(train=False)}
+        if phase == "gen":
+            return {"g": masks()}
+        return {"g": masks(), "d_g": starts(), "g2": masks(),
+                "d_real": starts(), "d_fake": starts()}
+
+    def _forward(self, batch, masks, *, train: bool):
+        """Teacher-forced G: (pred in f32, new batch-norm statistics)."""
+        pred, _, bn = self._apply_generator(
+            self._cast(batch["ppg"]), batch["lengths"],
+            self._cast(batch["lft"]), self._cast(batch["lf0"]),
+            self._cast(batch["spk_emb"]), self._cast(batch["targets"]),
+            train=train, draws=masks)
+        # the losses stay in f32; the statistics are f32 already
+        return _wide(pred), bn
+
+    def _gen_loss(self, batch, draws, *, with_adv: bool, train: bool = True):
+        pred, bn = self._forward(batch, draws["g"], train=train)
+        mse = masked_mse_loss(pred, batch["targets"], batch["lengths"])
+        metrics = {"mse_loss": mse}
+        gen_loss = self.lambda_l1 * mse
+        if with_adv:
+            # the reference detaches G's output here (train_b02.py:201):
+            # the term is logged and gives G no gradient
+            with torch.no_grad():
+                p_hat = self.discriminator(pred.detach(), batch["lengths"],
+                                           starts=draws["d_g"])
+            adv = generator_adversarial_loss(p_hat,
+                                             loss_type=self.adv_loss_type)
+            metrics["adversarial_loss"] = adv
+            gen_loss = gen_loss + self.lambda_adv * adv
+        metrics["generator_loss"] = gen_loss
+        return gen_loss, metrics, bn
+
+    @staticmethod
+    def _update(module, opt, loss):
+        opt.step(torch.autograd.grad(loss, list(module.parameters())))
+
+    @staticmethod
+    def _detach(metrics):
+        return {k: v.detach() for k, v in metrics.items()}
+
+    # -- steps -----------------------------------------------------------
+
+    def gen_step(self, batch: dict, draws: dict = None) -> dict:
+        """Phase A: a generator-only update."""
+        draws = draws or self.draw("gen", batch)
+        loss, metrics, bn = self._gen_loss(batch, draws, with_adv=False)
+        self._update(self.generator, self.g_opt, loss)
+        self.generator.set_bn_state(bn)
+        self.step += 1
+        return self._detach(metrics)
+
+    def gan_step(self, batch: dict, draws: dict = None) -> dict:
+        """Phase B: a generator update with the (detached) adversarial term
+        logged, then the updated G's train-mode forward (the batch norms'
+        second update) and a discriminator update on it."""
+        draws = draws or self.draw("gan", batch)
+        loss, metrics, bn = self._gen_loss(batch, draws, with_adv=True)
+        self._update(self.generator, self.g_opt, loss)
+        self.generator.set_bn_state(bn)
+        # the reference makes pred again with the UPDATED G in train mode
+        # (train_b02.py:225-233), advancing the running statistics again
+        with torch.no_grad():
+            pred, bn = self._forward(batch, draws["g2"], train=True)
+        self.generator.set_bn_state(bn)
+        lengths = batch["lengths"]
+        p_real = self.discriminator(batch["targets"], lengths,
+                                    starts=draws["d_real"])
+        p_fake = self.discriminator(pred, lengths, starts=draws["d_fake"])
+        real, fake = discriminator_adversarial_loss(
+            p_fake, p_real, loss_type=self.adv_loss_type)
+        self._update(self.discriminator, self.d_opt, real + fake)
+        metrics.update(real_loss=real, fake_loss=fake,
+                       discriminator_loss=real + fake)
+        self.step += 1
+        return self._detach(metrics)
+
+    @torch.no_grad()
+    def eval_step(self, batch: dict) -> dict:
+        """The MSE and generator loss in eval mode (the running statistics,
+        no dropout but the prenet's, no adversarial term), without updates.
+        The prenet's masks come from a generator of its own, so evaluation
+        leaves the training stream as it was."""
+        rng = torch.Generator(device=self.device).manual_seed(self.step)
+        _, metrics, _ = self._gen_loss(batch, self.draw("eval", batch, rng),
+                                       with_adv=False, train=False)
+        return self._detach(metrics)

@@ -8,13 +8,17 @@ and `svcc23_fastsvc_tpu/bin/convert_checkpoint.py` reads it:
      "scheduler": {"generator": ..., "discriminator": ...},
      "steps": int}
 
-State dicts carry the reference keys; the optimizer and scheduler entries
+State dicts carry the reference keys (a B02 Tacotron2's under the
+reference wrapper's "acoustic_network." prefix, the task's
+`generator_prefix`, so that `load_acoustic_model` and the decode CLI read
+a training checkpoint as it is); the optimizer and scheduler entries
 follow torch's optimizer and StepLR layouts (`train.state.RefRAdam`). A
-training checkpoint also carries "rng": the excitation noise generator's
-state and the batcher's numpy bit-generator state, so that `--resume`
-continues bit for bit. A decode-only checkpoint holds the generator and
-the steps alone. Orbax checkpoints of the JAX package are not read here:
-convert them to this layout first.
+training checkpoint also carries "rng": the task's generator state (the
+FastSVC excitation noise's under "sine", the B02 draws' under "draws", the
+task's `rng_key`) and the batcher's numpy bit-generator state, so that
+`--resume` continues bit for bit. A decode-only checkpoint holds the
+generator and the steps alone. Orbax checkpoints of the JAX package are
+not read here: convert them to this layout first.
 """
 
 from __future__ import annotations
@@ -96,12 +100,15 @@ def save_generator_checkpoint(path: str, generator, steps: int):
 
 
 def save_checkpoint(path: str, task, *, batcher_rng=None):
-    """The whole training state of a `train.gan.FastSVCTrainTask`."""
+    """The whole training state of a `train.gan.FastSVCTrainTask` or a
+    `train.b02.B02TrainTask`."""
     g_opt, d_opt = task.g_opt.state_dict(), task.d_opt.state_dict()
-    rng = {"sine": task.rng.get_state() if task.rng is not None else None,
-           "batcher": batcher_rng}
+    rng = {task.rng_key: task.rng.get_state() if task.rng is not None
+           else None, "batcher": batcher_rng}
+    prefix = task.generator_prefix
+    generator = {prefix + k: v for k, v in _cpu_state(task.generator).items()}
     _write(path, {
-        "model": {"generator": _cpu_state(task.generator),
+        "model": {"generator": generator,
                   "discriminator": _cpu_state(task.discriminator)},
         "optimizer": {"generator": g_opt["optimizer"],
                       "discriminator": d_opt["optimizer"]},
@@ -116,7 +123,10 @@ def load_checkpoint(path: str, task, *, params_only: bool = False):
     """Restore `task` from `path` and return the checkpoint's "rng" entry
     (None with `params_only`, which loads the weights and nothing else)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    task.generator.load_state_dict(sd["model"]["generator"])
+    prefix = task.generator_prefix
+    task.generator.load_state_dict(
+        {k[len(prefix):]: v for k, v in sd["model"]["generator"].items()
+         if k.startswith(prefix)})
     task.discriminator.load_state_dict(sd["model"]["discriminator"])
     if params_only:
         return None
@@ -126,8 +136,8 @@ def load_checkpoint(path: str, task, *, params_only: bool = False):
                                sd["scheduler"]["discriminator"])
     task.step = int(sd["steps"])
     rng = sd.get("rng") or {}
-    if rng.get("sine") is not None and task.rng is not None:
-        task.rng.set_state(rng["sine"])
+    if rng.get(task.rng_key) is not None and task.rng is not None:
+        task.rng.set_state(rng[task.rng_key])
     return rng
 
 

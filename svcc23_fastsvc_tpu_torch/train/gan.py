@@ -28,7 +28,7 @@ parameters and optimizer state stay f32, the step casts the parameters
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, ClassVar
 
 import numpy as np
 import torch
@@ -60,6 +60,11 @@ class FastSVCTrainTask:
     compute_dtype: Any = None  # torch.bfloat16 for bf16 compute
     rng: Any = None  # torch.Generator of the excitation noise
     step: int = 0
+
+    # the generator's checkpoint keys carry no prefix (`train.checkpoint`);
+    # the noise generator's state is stored under "sine"
+    generator_prefix: ClassVar[str] = ""
+    rng_key: ClassVar[str] = "sine"
 
     @property
     def device(self):

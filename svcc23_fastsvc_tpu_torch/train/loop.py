@@ -1,11 +1,12 @@
-"""Host-side training loop around `train.gan.FastSVCTrainTask`.
+"""Host-side training loop around `train.gan.FastSVCTrainTask` and
+`train.b02.B02TrainTask`.
 
 Counterpart of `svcc23_fastsvc_tpu/train/loop.py::Trainer`, the part the
-FastSVC recipe runs on one device: a step loop that picks `gen_step` up to
-`discriminator_train_start_steps` and `gan_step` after it, log, eval and
-save intervals, `train_max_steps`, resume, the packed wire format, and a
-graceful SIGTERM (checkpoint at the next call boundary, `preempted` set,
-the CLI exits 75).
+FastSVC and B02 recipes run on one device: a step loop that picks
+`gen_step` up to `discriminator_train_start_steps` and `gan_step` after
+it, log, eval and save intervals, `train_max_steps`, resume, the packed
+wire format, and a graceful SIGTERM (checkpoint at the next call
+boundary, `preempted` set, the CLI exits 75).
 
 `steps_per_call` K > 1 runs K steps a call, as the JAX trainer does
 (`lax.scan` there): calls split at the log, eval and save intervals and at
@@ -14,18 +15,22 @@ packed and sent in one transfer, and the log takes each call's mean over
 its steps. On the card a call is one replay of a captured CUDA graph
 (`train.graphs.StepGraphs`); on the CPU, `FastSVCTrainTask.multi_step`'s
 eager loop. A call of one step, and every step when K = 1, is the eager
-`gen_step` / `gan_step`. Preemption is honoured between calls. Scalars go
+`gen_step` / `gan_step`. A B02 task runs one step a call only (its
+recipe's `steps_per_call: 1`; K-step B02 calls are not ported). Preemption
+is honoured between calls. Scalars go
 to the log only (no tensorboard yet). The batcher runs in the loop's
 thread (no prefetch thread), so its random state at a checkpoint is
 exactly that of the steps taken.
 
 CUDA runs asynchronously, so each interval's rate is taken after the
-metrics' transfer has drained the device queue: steps/s and audio-s/s are
+metrics' transfer has drained the device queue: steps/s and audio-s/s
+(frames/s for a batcher of `max_frames`-frame utterances, B02's) are
 wall-clock throughput.
 """
 
 from __future__ import annotations
 
+import inspect
 import logging
 import signal as _signal
 import time
@@ -68,6 +73,10 @@ class Trainer:
         # K steps a call: on the card one captured CUDA graph per (phase,
         # k, batch layout), on the CPU an eager loop (train/graphs.py)
         self.steps_per_call = max(int(config.get("steps_per_call", 1)), 1)
+        if self.steps_per_call > 1 and not hasattr(task, "multi_step"):
+            raise NotImplementedError(
+                f"steps_per_call {self.steps_per_call}: K steps a call are "
+                f"not ported for {type(task).__name__}; use steps_per_call 1")
         self._graphs = (StepGraphs(task) if self.steps_per_call > 1
                         and self.device.type == "cuda" else None)
         # the packed wire is exact only when the step casts to bf16 anyway
@@ -209,11 +218,16 @@ class Trainer:
                     waits["drain"] = time.time() - t0
                     dt = time.time() - t_last
                     sps = (step - steps_last) / dt if dt > 0 else 0.0
-                    audio_s = (cfg["batch_size"] * cfg["batch_length"]
-                               / cfg["sampling_rate"])
+                    frames = getattr(self.train_batcher, "max_frames", None)
+                    if frames is None:
+                        rate = {"audio_s_per_s": sps * cfg["batch_size"]
+                                * cfg["batch_length"] / cfg["sampling_rate"]}
+                    else:
+                        rate = {"frames_per_s": sps * cfg["batch_size"]
+                                * frames}
                     self._flush_logs(step, host, {
                         "steps_per_s": sps,
-                        "audio_s_per_s": sps * audio_s,
+                        **rate,
                         "data_wait_s": waits["data"],
                         "step_wait_s": waits["step"],
                         "drain_s": waits["drain"],
@@ -252,10 +266,14 @@ class Trainer:
 
     def _evaluate(self, step):
         totals, n = defaultdict(float), 0
-        with_adv = step > self.config.get("discriminator_train_start_steps", 0)
+        # the FastSVC eval scores the adversarial terms once D trains; the
+        # B02 eval has no such switch (the JAX Trainer's rule)
+        kw = {}
+        if "with_adv" in inspect.signature(self.task.eval_step).parameters:
+            kw["with_adv"] = step > self.config.get(
+                "discriminator_train_start_steps", 0)
         for batch in self.dev_batcher:
-            metrics = self.task.eval_step(to_device(batch, self.device),
-                                          with_adv=with_adv)
+            metrics = self.task.eval_step(to_device(batch, self.device), **kw)
             for k, v in metrics.items():
                 totals[k] += float(v)
             n += 1

@@ -1297,3 +1297,122 @@ def test_generator_step_with_the_switch_on_the_card_matches_the_cpu(cuda):
     scale = max(g.abs().max().item() for g in g_cpu)
     for a, c in zip(g_gpu, g_cpu):
         assert (a - c).abs().max().item() <= 1e-3 * scale
+
+
+# B, T, Cin, Cout, dilation: the B02 Tacotron2's bap stream (258 -> 86 ->
+# 43; the T + 2 conv3 21 -> 3) and its 1-channel FiLM convs, as training
+# runs them through the window conv (K = 3, no input slope)
+B02_GRAD_CASES = [
+    (2, 400, 258, 86, 2),
+    (2, 400, 86, 43, 2),
+    (2, 402, 21, 3, 2),
+    (2, 400, 1, 1, 1),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,Cin,Cout,dil", B02_GRAD_CASES)
+def test_window_conv_kernels_at_the_b02_widths(cuda, dtype, tol, B, T, Cin,
+                                               Cout, dil):
+    """#2, #3 and #4 at the odd widths of B02 training against their plain
+    versions; the wgrad twice bit for bit."""
+    x, w, b = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _conv_case(B, T, Cin, Cout, 3, seed=Cin + Cout))
+    g = torch.from_numpy(np.random.default_rng(Cin).standard_normal(
+        (B, T, Cout)).astype(np.float32)).to(cuda, dtype)
+    _close(window_conv(x, w, b, dil, None),
+           window_conv_plain(x, w, b, dil, None), tol)
+    _close(window_conv_dx(g, w, dil), window_conv_dx_plain(g, w, dil), tol)
+    dw, db = window_conv_wgrad(x, g, 3, dil, None)
+    want_w, want_b = window_conv_wgrad_plain(x, g, 3, dil, None)
+    _close(dw, want_w, tol)
+    _close(db, want_b, tol)
+    dw2, db2 = window_conv_wgrad(x, g, 3, dil, None)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+def _draws_to(draws, dev):
+    """A B02 step's draws (masks, window starts; None where off) on dev."""
+    if isinstance(draws, dict):
+        return {k: _draws_to(v, dev) for k, v in draws.items()}
+    if isinstance(draws, list):
+        return [_draws_to(v, dev) for v in draws]
+    return None if draws is None else draws.to(dev)
+
+
+B02_SMALL = {"generator_params": dict(
+    input_dim=16, output_dim=60, hidden_dim=32, dec_layers=2,
+    spk_emb_dim=8, econv_chans=16, prenet_dim=8),
+    "discriminator_params": {"batch_max_frames": 50}}
+
+
+@pytest.mark.parametrize("switch", ["0", "1"])
+def test_b02_steps_on_the_card_match_the_cpu(cuda, switch):
+    """A small B02 task's gen_step then gan_step (T = 256, so that with
+    FASTSVC_PALLAS_CONV=1 the bap convs and the FiLM convs take #5 and #6)
+    on the card against the same steps on the CPU, on the same draws, f32
+    with TF32 off: the losses within 1e-4 relative, every parameter within
+    1e-3 of how far the CPU moved it (plus 1e-7 absolute: conv3's bias,
+    whose exact gradient is 0, moves by rounding noise), and the running
+    statistics within 1e-4 of their scale. The launches show the path ran
+    through the kernels."""
+    from svcc23_fastsvc_tpu_torch.config import build_b02_task
+
+    r = np.random.default_rng(4)
+    B, T = 2, 256
+    host = {"ppg": r.standard_normal((B, T, 16)),
+            "lft": 0.3 * r.standard_normal((B, T, 1)),
+            "lf0": 5 + 0.3 * r.standard_normal((B, T, 1)),
+            "spk_emb": r.standard_normal((B, 8)),
+            "targets": 0.5 * r.standard_normal((B, T, 63))}
+    host = {k: torch.from_numpy(v.astype(np.float32)) for k, v in host.items()}
+    host["lengths"] = torch.tensor([256, 201], dtype=torch.int32)
+    saved = (conv_mod.pallas_conv_mode(), torch.backends.cudnn.allow_tf32)
+    conv_mod.set_pallas_conv_mode(switch)
+    torch.backends.cudnn.allow_tf32 = False
+    counters = (window_conv, window_conv_dx, window_conv_wgrad,
+                fused_conv1d, fused_conv1d_bwd)
+    try:
+        runs = {}
+        for dev in ("cpu", cuda):
+            task = build_b02_task(B02_SMALL, device=dev, seed=3)
+            gen = torch.Generator().manual_seed(5)
+            before = [c.launches for c in counters]
+            ms = []
+            for phase in ("gen", "gan"):
+                draws = task.draw(phase, host, gen)
+                draws = _draws_to(draws, dev)
+                batch = {k: v.to(dev) for k, v in host.items()}
+                ms.append(getattr(task, f"{phase}_step")(batch, draws))
+            launched = [c.launches - b for c, b in zip(counters, before)]
+            runs[dev] = (ms, {k: v.detach().cpu().clone() for k, v in
+                              task.generator.state_dict().items()},
+                         {k: v.detach().cpu().clone() for k, v in
+                          task.discriminator.state_dict().items()}, launched)
+        start = build_b02_task(B02_SMALL, device="cpu", seed=3)
+    finally:
+        conv_mod.set_pallas_conv_mode(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    (m_cpu, g_cpu, d_cpu, _), (m_gpu, g_gpu, d_gpu, launched) = (
+        runs["cpu"], runs[cuda])
+    # window conv: fwd, dx, wgrad; fused: fwd, bwd
+    if switch == "1":
+        assert all(n > 0 for n in launched[3:]), launched
+    else:
+        assert all(n > 0 for n in launched[:3]) and launched[3:] == [0, 0], \
+            launched
+    for a, c in zip(m_gpu, m_cpu):
+        for k in c:
+            assert abs(a[k].item() - c[k].item()) <= 1e-4 * abs(c[k].item()), k
+    for got, want, first in ((g_gpu, g_cpu, start.generator.state_dict()),
+                             (d_gpu, d_cpu,
+                              start.discriminator.state_dict())):
+        for k, v in want.items():
+            if not v.is_floating_point():
+                continue
+            if "running" in k:
+                assert (got[k] - v).abs().max() <= 1e-4 * v.abs().max(), k
+                continue
+            moved = (v - first[k]).abs().max().item()
+            assert (got[k] - v).abs().max().item() <= 1e-3 * moved + 1e-7, k
