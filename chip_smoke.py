@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FastSVC decode and training paths, the B02
 vocoder's synthesis and the B02 acoustic model's decode and training on one
-H100, each fused-chain mode and the fused-conv switch too, and FastSVC
-training at the recipe's K steps a call as captured CUDA graphs.
+H100, each fused-chain mode and the fused-conv switch too, FastSVC
+training at the recipe's K steps a call as captured CUDA graphs, and the
+FastSVC front end (wavs to features to conversion).
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
@@ -148,6 +149,21 @@ Phases, each printed on one line with its elapsed seconds:
    stream's training shapes (batch 16) against their plain versions, with
    the kernel's, the plain version's and cuDNN's times, device times and
    the bound.
+23. the front end (recipe stages 0-3), TF32 off: 8 synthetic utterances of
+   4 s (one at 24 kHz, resampled on the host) written as wavs and read
+   through a wav.scp; x-vector speaker embeddings (512 / 1500 widths) and
+   `extract_features` (Harvest on the host; loudness and the full-width
+   16-block 144-d conformer PPG on the card), both models from seeded
+   weights in the reference checkpoint layouts; per-speaker
+   `F0Statistics`, the `StandardScaler` fit and transform, then phase 4's
+   f32 generator converts all 8 to one speaker (launch counts set to 0
+   before the front end and read after the decode: 60 window convs and 1
+   sine). Then each stage timed alone (audio-s/s), the PPG's busy share,
+   peak memory, and the card against the CPU: the conformer and the
+   x-vector on 2 s and both log-mels (the linguistic stand-in's and the
+   PPG's) by phase 7's rule (CPU f64, 4x the CPU f32's error), loudness
+   within 1e-5 of max |y| of the CPU's, YIN's voicing on >= 99% of frames
+   and F0 within 1e-4 relative.
 
 The line before the last is the kernels' JSON; the last line is
 `{"ok": true, "device": {...}}`, printed only when every phase passed. A
@@ -2225,6 +2241,312 @@ def b02_train_phase(dev, phases):
     return rows, paths
 
 
+# phase 23: the FastSVC front end (recipe stages 0-3) on the card, then
+# decode of phase 4's generator on its features; 8 utterances of 4 s, the
+# fourth of them at 24 kHz (resampled on the host), two speakers
+FE_UTTS = [(f"spk{'AB'[i // 4]}_{i % 4:03d}", 24000 if i == 3 else SR,
+            130.0 + 25 * i) for i in range(8)]
+FE_SECONDS = 4.0
+FE_TRG = "spkB"  # every utterance is converted to this speaker
+# the card's loudness within TOL_FE of max |y| of the CPU f32 result; its
+# log-mels, conformer and x-vector outputs by phase 7's rule: within
+# F32_FACTOR x the CPU f32's own distance from CPU f64 plus TOL_FE of
+# max |f64|; YIN: the voicing of >= 99% of frames equal and F0 within
+# 1e-4 relative where both are voiced
+TOL_FE, TOL_YIN, YIN_AGREE = 1e-5, 1e-4, 0.99
+
+
+def fe_singing(f0, sr, seed):
+    r = np.random.default_rng(seed)
+    t = np.arange(int(FE_SECONDS * sr)) / sr
+    inst = f0 * (1 + 0.03 * np.sin(2 * np.pi * 5.5 * t))
+    phase = 2 * np.pi * np.cumsum(inst) / sr
+    x = sum(0.5 ** k * np.sin((k + 1) * phase) for k in range(4))
+    env = 0.5 * (1 - np.cos(2 * np.pi * np.minimum(t / FE_SECONDS, 1)))
+    return 0.3 * x * env + 0.002 * r.standard_normal(len(t))
+
+
+def reference_layout_weights(cls, seed):
+    """The state dict of a `cls()` made from a seed, batch norm's running
+    statistics moved off 0 / 1: what a reference checkpoint holds."""
+    torch.manual_seed(seed)
+    sd = cls().state_dict()
+    gen = torch.Generator().manual_seed(seed + 1)
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            v.copy_(0.2 * torch.randn(v.shape, generator=gen))
+        elif k.endswith("running_var"):
+            v.copy_(torch.rand(v.shape, generator=gen) + 0.5)
+    return sd
+
+
+def hold_f32_to_f64(name, card, cpu32, cpu64):
+    """Phase 7's rule on one output: the card's f32 within F32_FACTOR x
+    the CPU f32's distance from the CPU f64, plus TOL_FE of max |f64|."""
+    ref = cpu64.double()
+    e_card = (card.double().cpu() - ref).abs().max().item()
+    e_cpu = (cpu32.double() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    require(e_card <= F32_FACTOR * e_cpu + TOL_FE * scale,
+            f"{name}: card err {e_card}, CPU f32 err {e_cpu}, max |f64| "
+            f"{scale}")
+    return {"card err": e_card, "cpu f32 err": e_cpu, "max |f64|": scale}
+
+
+def front_end_phase(dev, phases, g32, sg):
+    """Phase 23: recipe stages 0-3 through the port's front end on the
+    card, then decode. (1) The main path, launch counts set to 0 before it
+    and read after: the utterances written as PCM16 wavs and read through
+    a wav.scp, as the CLIs read them; x-vector speaker embeddings
+    (`speaker_embeddings`, 512 / 1500 widths, a SpeechBrain-layout
+    checkpoint from a seed); `extract_features` per utterance (Harvest on
+    the host, loudness and the full-width 16-block conformer PPG, from a
+    reference-layout checkpoint, on the card); per-speaker
+    `F0Statistics`; the `StandardScaler` fit and transform; every
+    utterance converted to FE_TRG by `synthesize` with phase 4's f32
+    generator in one batch. (2) Each stage timed alone over the same
+    audio, the PPG's busy share under torch.profiler. (3) The card held
+    against the CPU."""
+    from svcc23_fastsvc_tpu_torch.bin.common import (
+        iter_wav_scp,
+        resample,
+        write_wav,
+    )
+    from svcc23_fastsvc_tpu_torch.bin.decode_fastsvc import (
+        PAD_MULTIPLE,
+        synthesize,
+    )
+    from svcc23_fastsvc_tpu_torch.bin.extract_spk_embs import (
+        speaker_embeddings,
+    )
+    from svcc23_fastsvc_tpu_torch.bin.preprocess_fastsvc import (
+        extract_features,
+        logmel_extract,
+    )
+    from svcc23_fastsvc_tpu_torch.dsp.f0 import F0Statistics, yin_f0
+    from svcc23_fastsvc_tpu_torch.dsp.harvest import harvest_f0
+    from svcc23_fastsvc_tpu_torch.models.conformer_ppg import (
+        ConformerPPG,
+        frontend_logmel,
+        load_ppg_model,
+    )
+    from svcc23_fastsvc_tpu_torch.models.xvector import (
+        XVector,
+        load_xvector_model,
+    )
+    from svcc23_fastsvc_tpu_torch.ops.sine import sine_excitation
+    from svcc23_fastsvc_tpu_torch.ops.stft import loudness_extract
+    from svcc23_fastsvc_tpu_torch.ops.window_conv import (
+        window_conv,
+        window_conv_dx,
+        window_conv_wgrad,
+    )
+    from svcc23_fastsvc_tpu_torch.utils.scalers import StandardScaler
+
+    t = time.perf_counter()
+    cfg = {"sampling_rate": SR, "hop_size": HOP, "lft_hop_size": 64,
+           "shiftms": 10}
+    audio_s = len(FE_UTTS) * FE_SECONDS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fe_")
+    try:
+        scp = os.path.join(tmp, "wav.scp")
+        with open(scp, "w") as f:
+            for i, (utt, sr, f0) in enumerate(FE_UTTS):
+                path = os.path.join(tmp, f"{utt}.wav")
+                write_wav(path, fe_singing(f0, sr, i), sr)
+                f.write(f"{utt} {path}\n")
+        ppg_path = os.path.join(tmp, "24epoch.pth")
+        torch.save(reference_layout_weights(ConformerPPG, 10), ppg_path)
+        xv_path = os.path.join(tmp, "embedding_model.ckpt")
+        torch.save(reference_layout_weights(XVector, 20), xv_path)
+        ppg_model = load_ppg_model(ppg_path, device=dev)
+        xvector = load_xvector_model(xv_path, device=dev)
+        utts = list(iter_wav_scp(scp))
+        phases["front_end_setup_s"] = time.perf_counter() - t
+
+        # (1) the main path, front end then decode
+        counters = (window_conv, window_conv_dx, window_conv_wgrad,
+                    sine_excitation)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_path = time.perf_counter()
+        embs = speaker_embeddings(scp, "xvector", checkpoint=xv_path,
+                                  device=dev)
+        feats = {utt: extract_features(
+            utt, audio, sr, cfg, f0min=70.0, f0max=400.0,
+            linguistic="conformer", ppg_model=ppg_model, device=dev)
+            for utt, audio, sr in utts}
+        torch.cuda.synchronize()
+        front_end_s = time.perf_counter() - t_path
+        fe_peak = torch.cuda.max_memory_allocated()
+        stats = F0Statistics()
+        f0_stats = {}
+        for spk in sorted({u.split("_")[0] for u in feats}):
+            f0_stats[spk] = stats.estimate(
+                [f["f0"] for u, f in feats.items() if u.startswith(spk)])
+        scaler = StandardScaler()
+        for f in feats.values():
+            scaler.partial_fit(f["ppg"])
+        trg = np.array([f0_stats[FE_TRG][0], 1.0])
+        Tf = max(len(f["f0"]) for f in feats.values())
+        Tp = -(-Tf // PAD_MULTIPLE) * PAD_MULTIPLE
+        nb = len(feats)
+        ppg_p = np.zeros((nb, Tp, 144), np.float32)
+        f0_p = np.zeros((nb, Tp, 1), np.float32)
+        lft_p = np.zeros((nb, Tp * HOP, 1), np.float32)
+        for bi, (utt, f) in enumerate(feats.items()):
+            n = len(f["f0"])
+            src = np.array([f0_stats[utt.split("_")[0]][0], 1.0])
+            ppg_p[bi, :n] = scaler.transform(f["ppg"])
+            f0_p[bi, :n, 0] = stats.convert(f["f0"], src, trg)
+            lft_p[bi, :n * HOP, 0] = f["lft"]
+        emb_p = np.broadcast_to(embs[FE_TRG], (nb, 512)).copy()
+        rng = torch.Generator(device=dev).manual_seed(3)
+        y = synthesize(g32, sg, *(torch.from_numpy(a).to(dev) for a in (
+            ppg_p, f0_p, lft_p, emb_p)), generator_rng=rng)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t_path
+        launches = {"window_conv": window_conv.launches,
+                    "sine_excitation": sine_excitation.launches}
+        require(launches == {"window_conv": 60, "sine_excitation": 1}
+                and window_conv_dx.launches == window_conv_wgrad.launches
+                == 0, f"front end -> decode launched {launches}; want 60 "
+                      "window convs and 1 sine")
+        require(tuple(y.shape) == (nb, Tp * HOP, 1)
+                and torch.isfinite(y).all().item(), "front end -> decode: "
+                f"output {tuple(y.shape)} not finite or not ({nb}, "
+                f"{Tp * HOP}, 1)")
+        for utt, f in feats.items():
+            n = len(f["f0"])
+            require(f["ppg"].shape == (n, 144) and len(f["wave"]) ==
+                    len(f["lft"]) == n * HOP and np.isfinite(
+                        f["ppg"]).all() and np.isfinite(f["lft"]).all(),
+                    f"features of {utt}: shapes or values")
+            require((f["f0"] > 0).mean() > 0.5, f"{utt}: Harvest voiced "
+                    f"{(f['f0'] > 0).mean():.2f} of the frames")
+        require(all(e.shape == (512,) and np.isfinite(e).all()
+                    for e in embs.values()), "x-vectors: shape or values")
+        f0_rows = {k: [round(float(x), 4) for x in v]
+                   for k, v in f0_stats.items()}
+        say(f"front end main path ({len(utts)} x {FE_SECONDS:.0f} s), first "
+            f"pass: front end {front_end_s:.3f} s ({audio_s / front_end_s:.2f} audio-s/s)"
+            f", with stats, scaler and decode {path_s:.3f} s; frames "
+            f"{[len(f['f0']) for f in feats.values()]}; log-F0 mean, std "
+            f"{f0_rows}; launches {launches}")
+        say(f"front end peak memory: {fe_peak / 2**30:.3f} GiB")
+        # the same front end again, warm (cuFFT plans, cuDNN algorithms and
+        # the lazily loaded kernels of the first pass in place)
+        t_warm = time.perf_counter()
+        speaker_embeddings(scp, "xvector", checkpoint=xv_path, device=dev)
+        for utt, audio, sr in utts:
+            extract_features(utt, audio, sr, cfg, f0min=70.0, f0max=400.0,
+                             linguistic="conformer", ppg_model=ppg_model,
+                             device=dev)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t_warm
+        say(f"front end again, warm: {warm_s:.3f} s ({audio_s / warm_s:.2f} "
+            "audio-s/s)")
+        phases["front_end_path_s"] = time.perf_counter() - t
+
+        # (2) each stage alone over the same audio
+        t = time.perf_counter()
+        a16 = [resample(a, sr, 16000) for _, a, sr in utts]
+        x16 = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+               for a in a16]
+        stage = {
+            "harvest (host)": lambda: [harvest_f0(a, fs=16000) for a in a16],
+            "x-vector": lambda: [xvector.encode(x) for x in x16],
+            "loudness": lambda: [loudness_extract(x, SR, 64) for x in x16],
+            "yin": lambda: [yin_f0(x, sr=16000, hop=HOP) for x in x16],
+            "log-mel": lambda: [logmel_extract(x) for x in x16],
+            "conformer ppg": lambda: [ppg_model(x) for x in x16],
+        }
+        stage_s = {}
+        with torch.inference_mode():
+            for name, fn in stage.items():
+                fn()  # warm-up: cuFFT plans, cuDNN algorithms
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                stage_s[name] = time.perf_counter() - t0
+            for name, s in stage_s.items():
+                say(f"front end stage {name}: {s:.4f} s for {audio_s:.0f} "
+                    f"audio-s, {audio_s / s:.1f} audio-s/s")
+            # the PPG's busy share: the profiler's kernel sum over the wall
+            # time of the same 8 forwards unprofiled
+            wall = stage_s["conformer ppg"] * 1e3
+            per_kernel = device_ms(stage["conformer ppg"], n=1)
+            busy = sum(per_kernel.values())
+            say(f"front end conformer ppg busy: {busy:.3f} ms of kernels in "
+                f"{wall:.3f} ms wall, " + (
+                    f"{busy / wall:.1%}" if busy > 0 else
+                    "not measured (the profiler recorded no kernel)"))
+            for kname, ms in list(per_kernel.items())[:8]:
+                say(f"  {ms:8.4f} ms {ms / busy:6.1%}  {kname[:110]}")
+        phases["front_end_stages_s"] = time.perf_counter() - t
+
+        # (3) the card against the CPU
+        t = time.perf_counter()
+        holds = {}
+        with torch.inference_mode():
+            x2 = x16[0][:2 * 16000]
+            x2c = x2.cpu()
+            for name, model, fn in (
+                ("conformer ppg", ppg_model, lambda m, x: m(x)),
+                ("x-vector", xvector, lambda m, x: m.encode(x)),
+            ):
+                cpu32 = copy.deepcopy(model).cpu()
+                cpu64 = copy.deepcopy(model).cpu().double()
+                holds[name] = hold_f32_to_f64(
+                    name, fn(model, x2), fn(cpu32, x2c),
+                    fn(cpu64, x2c.double()))
+            err = scale = 0.0
+            for x in x16:
+                ref = loudness_extract(x.cpu(), SR, 64)
+                err = max(err, (loudness_extract(x, SR, 64).cpu() - ref)
+                          .abs().max().item())
+                scale = max(scale, ref.abs().max().item())
+            require(err <= TOL_FE * scale, f"loudness: card vs CPU max err "
+                    f"{err} > {TOL_FE} x {scale}")
+            holds["loudness"] = {"max err": err, "max |y|": scale}
+            # log-mel by phase 7's rule: the quiet bins of a loud frame keep
+            # only the f32 FFT's error relative to the frame's energy, which
+            # the log turns into ~1e-4 nepers on the CPU and the card alike
+            for name, fn in (("log-mel", logmel_extract),
+                             ("ppg log-mel", frontend_logmel)):
+                rows = [hold_f32_to_f64(name, fn(x), fn(x.cpu()),
+                                        fn(x.cpu().double())) for x in x16]
+                holds[name] = max(rows, key=lambda r: r["card err"])
+                holds[name]["card vs cpu f32"] = max(
+                    (fn(x).cpu() - fn(x.cpu())).abs().max().item()
+                    for x in x16)
+            frames = same = both = 0
+            f0_err = 0.0
+            for x in x16:
+                got = yin_f0(x, sr=16000, hop=HOP).cpu()
+                ref = yin_f0(x.cpu(), sr=16000, hop=HOP)
+                frames += len(ref)
+                same += int(((got > 0) == (ref > 0)).sum())
+                v = (got > 0) & (ref > 0)
+                both += int(v.sum())
+                if v.any():
+                    f0_err = max(f0_err, ((got[v] - ref[v]).abs()
+                                          / ref[v]).max().item())
+            holds["yin"] = {"frames": frames, "voicing equal": same,
+                            "both voiced": both, "max f0 rel err": f0_err}
+            require(same >= YIN_AGREE * frames and f0_err <= TOL_YIN,
+                    f"yin card vs CPU: {holds['yin']}")
+        for name, h in holds.items():
+            say(f"front end hold {name}: {h}")
+        phases["front_end_holds_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     # 1. device
     require(torch.cuda.is_available(), "no CUDA device: chip_smoke.py runs "
@@ -2658,9 +2980,15 @@ def main():
     b02_rows, b02_paths = b02_train_phase(dev, phases)
     kernels += b02_rows
     say(f"phase 22 (B02 training): {time.perf_counter() - t:.1f} s")
+
+    # 23. the front end (recipe stages 0-3) on the card, then decode
+    t = time.perf_counter()
+    fe_launches = front_end_phase(dev, phases, g32, sg)
+    say(f"phase 23 (front end -> decode): {time.perf_counter() - t:.1f} s")
     paths = {"decode": launches, "train": train_launches, **voc_launches,
              "decode_chain": down_launches, **fused_paths,
-             "train_k_steps": k_launches, **b02_paths}
+             "train_k_steps": k_launches, **b02_paths,
+             "front_end_decode": fe_launches}
     for row in kernels:
         name = row["name"].split(" ")[0]
         row["launches_by_path"] = {p: n.get(name, 0) for p, n in paths.items()}

@@ -5,14 +5,18 @@
 `subfreq_discriminator_state_dict_from_jax` are the inverses of the JAX
 package's `compat/torch_weights.py::convert_fastsvc_generator`,
 `convert_melgan_msd`, `convert_hnusfgan`, `convert_tacotron2` and
-`convert_subfreq_discriminator`; `downsample_block_state_dict_from_jax`
+`convert_subfreq_discriminator`, and `conformer_ppg_state_dict_from_jax`
+and `xvector_state_dict_from_jax` those of `models/conformer_ppg.py::
+convert_ppg_state_dict` and `models/xvector.py::
+convert_xvector_state_dict`; `downsample_block_state_dict_from_jax`
 carries one of the generator's DownsampleBlocks. Each takes a JAX param
 pytree as numpy arrays, either in weight-norm form ({"v", "g", "b"} leaves,
 WIO v) or folded ({"w", "b"}), and returns a state dict with the reference
 torch keys that `models.fastsvc.FastSVCGenerator`, `DownsampleBlock`,
 `MelGANMultiScaleDiscriminator`, `models.hnusfgan.HNUSFGANGenerator`,
-`models.tacotron2.Tacotron2` or `MultiSubFreqDiscriminator` loads (built
-with `use_weight_norm` matching the form). No JAX import: the arrays only
+`models.tacotron2.Tacotron2`, `MultiSubFreqDiscriminator`,
+`models.conformer_ppg.ConformerPPG` or `models.xvector.XVector` loads
+(built with `use_weight_norm` matching the form). No JAX import: the arrays only
 need `numpy.asarray`.
 """
 
@@ -188,4 +192,55 @@ def subfreq_discriminator_state_dict_from_jax(params) -> dict:
             sd[f"{pre}.weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
             if "b" in p:
                 sd[f"{pre}.bias"] = _t(p["b"])
+    return sd
+
+
+def conformer_ppg_state_dict_from_jax(params) -> dict:
+    """JAX ConformerPPG params -> the reference (and the port's) state
+    dict under "encoder.": the inverse of JAX `convert_ppg_state_dict`.
+    HWIO conv2d weights become (O, I, kh, kw), WIO conv1d weights
+    (O, I, K), linear weights (out, in)."""
+    sd = {}
+    emb = params["embed"]
+    for j, key in ((0, "conv0"), (2, "conv2")):
+        p = emb[key]
+        sd[f"encoder.embed.conv.{j}.weight"] = _t(
+            np.asarray(p["w"]).transpose(3, 2, 0, 1))
+        sd[f"encoder.embed.conv.{j}.bias"] = _t(p["b"])
+    _linear_sd(sd, "encoder.embed.out.0", emb["out"])
+    for i, bp in enumerate(params["blocks"]):
+        pre = f"encoder.encoders.{i}"
+        for name, key in (("feed_forward_macaron", "ff_macaron"),
+                          ("feed_forward", "ff")):
+            for w in ("w_1", "w_2"):
+                _linear_sd(sd, f"{pre}.{name}.{w}", bp[key][w])
+        att = bp["self_attn"]
+        for name in ("linear_q", "linear_k", "linear_v", "linear_out",
+                     "linear_pos"):
+            _linear_sd(sd, f"{pre}.self_attn.{name}", att[name])
+        for name in ("pos_bias_u", "pos_bias_v"):
+            sd[f"{pre}.self_attn.{name}"] = _t(att[name])
+        cv = bp["conv"]
+        for name, key in (("pointwise_conv1", "pw1"),
+                          ("depthwise_conv", "dw"),
+                          ("pointwise_conv2", "pw2")):
+            _conv(sd, f"{pre}.conv_module.{name}", cv[key])
+        _bn_sd(sd, f"{pre}.conv_module.norm", cv["bn"])
+        for name in ("norm_ff_macaron", "norm_mha", "norm_conv", "norm_ff",
+                     "norm_final"):
+            sd[f"{pre}.{name}.weight"] = _t(bp[name]["w"])
+            sd[f"{pre}.{name}.bias"] = _t(bp[name]["b"])
+    sd["encoder.after_norm.weight"] = _t(params["after_norm"]["w"])
+    sd["encoder.after_norm.bias"] = _t(params["after_norm"]["b"])
+    return sd
+
+
+def xvector_state_dict_from_jax(params) -> dict:
+    """JAX XVector params -> SpeechBrain's (and the port's) state dict:
+    the inverse of JAX `convert_xvector_state_dict`."""
+    sd = {}
+    for i, bp in enumerate(params["blocks"]):
+        _conv(sd, f"blocks.{3 * i}.conv", bp["conv"])
+        _bn_sd(sd, f"blocks.{3 * i + 2}.norm", bp["bn"])
+    _linear_sd(sd, f"blocks.{3 * len(params['blocks']) + 1}.w", params["fc"])
     return sd

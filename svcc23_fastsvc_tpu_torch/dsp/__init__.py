@@ -1,1 +1,3 @@
-"""Decode-time signal processing."""
+"""Signal processing: F0 (YIN on the device, Harvest on the host, log-F0
+statistics and conversion), silence trimming, and the vocoder's dilation
+factors."""

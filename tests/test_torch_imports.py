@@ -21,7 +21,17 @@ missing = sorted({"svcc23_fastsvc_tpu_torch.ops.down_chain",
                   "svcc23_fastsvc_tpu_torch.ops.pd_block",
                   "svcc23_fastsvc_tpu_torch.ops.fused_conv",
                   "svcc23_fastsvc_tpu_torch.models.tacotron2",
-                  "svcc23_fastsvc_tpu_torch.bin.decode_b02"} - set(names))
+                  "svcc23_fastsvc_tpu_torch.bin.decode_b02",
+                  "svcc23_fastsvc_tpu_torch.bin.extract_spk_embs",
+                  "svcc23_fastsvc_tpu_torch.bin.preprocess_fastsvc",
+                  "svcc23_fastsvc_tpu_torch.bin.compute_f0stats",
+                  "svcc23_fastsvc_tpu_torch.bin.compute_statistics_fastsvc",
+                  "svcc23_fastsvc_tpu_torch.bin.normalize_fastsvc",
+                  "svcc23_fastsvc_tpu_torch.dsp.harvest",
+                  "svcc23_fastsvc_tpu_torch.dsp.trim",
+                  "svcc23_fastsvc_tpu_torch.models.conformer_ppg",
+                  "svcc23_fastsvc_tpu_torch.models.xvector",
+                  "svcc23_fastsvc_tpu_torch.utils.scalers"} - set(names))
 print(len(names), bad + missing)
 """
 
