@@ -3,7 +3,7 @@
 vocoder's synthesis and the B02 acoustic model's decode and training on one
 H100, each fused-chain mode and the fused-conv switch too, FastSVC
 training at the recipe's K steps a call as captured CUDA graphs, and the
-FastSVC front end (wavs to features to conversion).
+FastSVC and B02 front ends (wavs to features to conversion).
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
@@ -164,6 +164,23 @@ Phases, each printed on one line with its elapsed seconds:
    PPG's) by phase 7's rule (CPU f64, 4x the CPU f32's error), loudness
    within 1e-5 of max |y| of the CPU's, YIN's voicing on >= 99% of frames
    and F0 within 1e-4 relative.
+24. the B02 recipe from wav to converted wav, TF32 off, at
+   egs/svcc23/baseline02/conf/taco2.yaml's settings (24 kHz, hop 160,
+   shiftms 6.667, mcep_dim 59, Harvest): 8 synthetic utterances of 4 s
+   (one at 16 kHz, resampled), two speakers; phase 23's x-vector
+   embeddings; `extract_b02_features` (Harvest on the host; WORLD
+   analysis, loudness and HuBERT-soft at bshall's full width, from a
+   seeded checkpoint in bshall's layout, on the card); the B02 scalers
+   fitted and applied in memory; every utterance shifted to one speaker,
+   decoded by phase 20's full-width Tacotron2 in one batch and vocoded by
+   its HN-uSFGAN; mel L1 and MCD of each conversion against its source on
+   the card (launch counts set to 0 before and read after: #1, #2, #8 and
+   #10, nothing else). Then the pass again warm, each stage alone
+   (audio-s/s), HuBERT's busy share, peak memory, and the card against
+   the CPU: HuBERT units, mcep, bap and loudness within 2x the CPU f32's
+   distance from f64 or 1e-5 of max |y|, continuous log-F0 and V/UV
+   equal, the decode by phase 20's rule, the vocoder on two utterances
+   within 1e-3 of max |y|, mel L1 and MCD within 1e-3 relative.
 
 The line before the last is the kernels' JSON; the last line is
 `{"ok": true, "device": {...}}`, printed only when every phase passed. A
@@ -2547,6 +2564,433 @@ def front_end_phase(dev, phases, g32, sg):
     return launches
 
 
+# phase 24: the B02 recipe from wav to converted wav on the card, at
+# egs/svcc23/baseline02/conf/taco2.yaml's settings: 8 utterances of 4 s
+# (phase 23's voices, the fourth at 16 kHz, resampled on the host), two
+# speakers, every one converted to B02_TRG
+B02_FE_UTTS = [(f"spk{'AB'[i // 4]}_{i % 4:03d}", 16000 if i == 3 else VSR,
+                130.0 + 25 * i) for i in range(8)]
+B02_FE_CONFIG = {"sampling_rate": VSR, "hop_size": VHOP,
+                 "shiftms": 6.6666666666, "mcep_dim": 59, "lft_hop_size": 64}
+B02_TRG = "spkB"
+B02_F0_RANGE = (70.0, 800.0)
+HUBERT_HOLD_S = 2.0  # seconds of the first utterance held against the CPU
+B02_VOC_HELD = (0, 7)  # utterances vocoded on the CPU too
+HUBERT_SPIN_CYCLES = 400_000_000  # ~0.2 s: outlasts enqueueing 2 forwards
+# HuBERT units, mcep, bap and loudness: the card within F32_B02 x the CPU
+# f32's own distance from the CPU f64, or TOL_FE x max |f64| where that is
+# larger; mel L1 and MCD within TOL_B02_EVAL relative of the CPU's
+F32_B02, TOL_B02_EVAL = 2.0, 1e-3
+
+
+def hold_b02(name, card, cpu32, cpu64):
+    """Phase 24's rule on one output (see F32_B02)."""
+    ref = torch.as_tensor(cpu64).double()
+    e_card = (torch.as_tensor(card).double().cpu() - ref).abs().max().item()
+    e_cpu = (torch.as_tensor(cpu32).double() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    require(e_card <= max(F32_B02 * e_cpu, TOL_FE * scale),
+            f"{name}: card err {e_card}, CPU f32 err {e_cpu}, max |f64| "
+            f"{scale}")
+    return {"card err": e_card, "cpu f32 err": e_cpu, "max |f64|": scale}
+
+
+def b02_front_end_phase(dev, phases):
+    """Phase 24: the B02 recipe, stages 0-3 then conversion, on the card.
+    (1) The main path, launch counts set to 0 before it and read after:
+    the utterances written as PCM16 wavs and read through a wav.scp;
+    phase 23's x-vector speaker embeddings; `extract_b02_features` per
+    utterance (Harvest on the host; WORLD analysis, loudness and
+    HuBERT-soft at bshall's full width, from a seeded checkpoint in
+    bshall's layout read by `load_hubert_soft`, on the card); the B02
+    scalers fitted and applied in memory; every utterance shifted to
+    B02_TRG's mean log-F0 in whole semitones, decoded in one batch by
+    phase 20's full-width Tacotron2 (`decode_batch`) and vocoded by phase
+    20's HN-uSFGAN (`vocode`); mel L1 and MCD of each conversion against
+    its source (`evaluate.pair_metrics`) on the card. The same pass again,
+    warm. (2) Each stage timed alone, HuBERT's busy share under
+    torch.profiler. (3) The card held against the CPU."""
+    from svcc23_fastsvc_tpu_torch.bin.common import (
+        iter_wav_scp,
+        resample,
+        write_wav,
+    )
+    from svcc23_fastsvc_tpu_torch.bin.compute_statistics_b02 import (
+        fit_b02_scalers,
+    )
+    from svcc23_fastsvc_tpu_torch.bin.decode_b02 import (
+        decode_batch,
+        semitone_shift,
+    )
+    from svcc23_fastsvc_tpu_torch.bin.evaluate import pair_metrics
+    from svcc23_fastsvc_tpu_torch.bin.extract_spk_embs import (
+        speaker_embeddings,
+    )
+    from svcc23_fastsvc_tpu_torch.bin.normalize_b02 import (
+        normalize_b02_features,
+    )
+    from svcc23_fastsvc_tpu_torch.bin.preprocess_b02 import (
+        extract_b02_features,
+        world_hop,
+    )
+    from svcc23_fastsvc_tpu_torch.bin.synthesize_b02 import (
+        signal_generator,
+        vocode,
+    )
+    from svcc23_fastsvc_tpu_torch.config import (
+        build_acoustic_model,
+        build_vocoder,
+    )
+    from svcc23_fastsvc_tpu_torch.dsp.f0 import F0Statistics, dilated_factor
+    from svcc23_fastsvc_tpu_torch.dsp.harvest import harvest_f0
+    from svcc23_fastsvc_tpu_torch.dsp.world import (
+        band_aperiodicity,
+        cheaptrick,
+        mcepalpha,
+        sp2mc,
+        world_analyze,
+    )
+    from svcc23_fastsvc_tpu_torch.models.hubert import (
+        HubertSoft,
+        bshall_checkpoint,
+        load_hubert_soft,
+    )
+    from svcc23_fastsvc_tpu_torch.models.xvector import XVector
+    from svcc23_fastsvc_tpu_torch.ops.down_chain import down_chain_fwd
+    from svcc23_fastsvc_tpu_torch.ops.fused_conv import fused_conv1d
+    from svcc23_fastsvc_tpu_torch.ops.pd_block import (
+        pd_adaptive_block,
+        pd_fixed_block,
+        pd_fixed_chain,
+    )
+    from svcc23_fastsvc_tpu_torch.ops.sine import sine_excitation
+    from svcc23_fastsvc_tpu_torch.ops.stft import loudness_extract_frames
+    from svcc23_fastsvc_tpu_torch.ops.window_conv import (
+        window_conv,
+        window_conv_dx,
+        window_conv_wgrad,
+    )
+
+    t = time.perf_counter()
+    cfg = B02_FE_CONFIG
+    f0min, f0max = B02_F0_RANGE
+    audio_s = len(B02_FE_UTTS) * FE_SECONDS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_b02_")
+    try:
+        scp = os.path.join(tmp, "wav.scp")
+        with open(scp, "w") as f:
+            for i, (utt, sr, f0) in enumerate(B02_FE_UTTS):
+                path = os.path.join(tmp, f"{utt}.wav")
+                write_wav(path, fe_singing(f0, sr, 40 + i), sr)
+                f.write(f"{utt} {path}\n")
+        xv_path = os.path.join(tmp, "embedding_model.ckpt")
+        torch.save(reference_layout_weights(XVector, 20), xv_path)
+        torch.manual_seed(24)
+        hubert_path = os.path.join(tmp, "hubert-soft-0d54a1f4.pt")
+        torch.save(bshall_checkpoint(HubertSoft(), seed=24), hubert_path)
+        hubert = load_hubert_soft(hubert_path, device=dev)
+        taco = build_acoustic_model(
+            TACO_CONFIG, generator=torch.Generator().manual_seed(20)).eval()
+        taco_cpu = copy.deepcopy(taco)
+        taco = taco.to(dev)
+        voc_cfg = {**VOC_CONFIG, "generator_params": {
+            **VOC_CONFIG["generator_params"], "aux_channels": 63}}
+        voc = build_vocoder(voc_cfg, generator=torch.Generator().manual_seed(
+            23)).fold_weight_norm_().eval()
+        voc_cpu = copy.deepcopy(voc)
+        voc = voc.to(dev)
+        vsg = signal_generator(voc_cfg)
+        utts = list(iter_wav_scp(scp))
+        phases["b02_front_end_setup_s"] = time.perf_counter() - t
+
+        def front_end():
+            """Stages 0-3: (features by utterance, scalers, normalised)."""
+            embs = speaker_embeddings(scp, "xvector", checkpoint=xv_path,
+                                      device=dev)
+            feats = {}
+            for utt, audio, sr in utts:
+                feats[utt] = extract_b02_features(
+                    utt, audio, sr, cfg, f0min=f0min, f0max=f0max,
+                    linguistic="hubert", ppg_model=hubert, device=dev)
+                feats[utt]["spk_emb"] = embs[utt.split("_")[0]][None]
+            scalers = fit_b02_scalers(feats.values())
+            norm = {u: normalize_b02_features(f, scalers)
+                    for u, f in feats.items()}
+            return embs, feats, norm
+
+        def conversion_inputs(embs, feats, norm):
+            """Decode inputs on the card, every utterance shifted to
+            B02_TRG and padded to the longest: ppg, lengths, lft, lf0, the
+            target's embedding, f0 and the dilation factors."""
+            stats = F0Statistics()
+            lf0_mean = {spk: stats.estimate(
+                [f["f0"] for u, f in feats.items() if u.startswith(spk)])[0]
+                for spk in sorted({u.split("_")[0] for u in feats})}
+            lengths = [len(f["f0"]) for f in feats.values()]
+            nb, tp = len(feats), max(lengths)
+            ppg = np.zeros((nb, tp, 256), np.float32)
+            lft = np.zeros((nb, tp, 1), np.float32)
+            lf0 = np.zeros((nb, tp, 1), np.float32)
+            f0 = np.zeros((nb, tp), np.float32)
+            for bi, (utt, f) in enumerate(feats.items()):
+                n = lengths[bi]
+                ratio = 2.0 ** (semitone_shift(
+                    lf0_mean[utt.split("_")[0]], lf0_mean[B02_TRG]) / 12.0)
+                ppg[bi, :n] = norm[utt]["ppg"]
+                lft[bi, :n] = norm[utt]["lft"]
+                lf0[bi, :n] = norm[utt]["lf0"] * ratio  # decode_b02's shift
+                f0[bi, :n] = f["f0"][:, 0] * ratio
+            emb = np.broadcast_to(embs[B02_TRG], (nb, 512)).copy()
+            df = np.stack([np.repeat(dilated_factor(x, VSR, 4), VHOP)
+                           for x in f0]).astype(np.float32)
+            return {"ppg": ppg, "lengths": np.asarray(lengths), "lft": lft,
+                    "lf0": lf0, "emb": emb, "f0": f0[:, :, None], "df": df}
+
+        masks_gen = torch.Generator().manual_seed(25)
+        vrng = torch.Generator(device=dev)
+
+        def convert(inp, masks, model=None, vocoder=None, where=dev):
+            """(mcep | bap (B, T, 63), audio (B, T * hop, 1)) of the
+            decode and the vocoder on `where`."""
+            d = {k: torch.from_numpy(v).to(where) for k, v in inp.items()}
+            feats = decode_batch(model or taco, d["ppg"], d["lengths"],
+                                 d["lft"], d["lf0"], d["emb"],
+                                 prenet_masks=masks.to(where))
+            aux = torch.cat([feats[:, :1], feats[:, :1], feats,
+                             feats[:, -1:], feats[:, -1:]], 1)
+            return feats, vocode(vocoder or voc, vsg, d["f0"], aux, d["df"],
+                                 generator_rng=vrng)
+
+        def evaluate_all(feats, inp, y):
+            """mel L1 and MCD of each conversion against its source."""
+            return {utt: pair_metrics(
+                f["wave"], VSR, y[bi, :inp["lengths"][bi] * VHOP, 0].cpu()
+                .numpy(), VSR, device=dev)
+                for bi, (utt, f) in enumerate(feats.items())}
+
+        # (1) the main path, stages 0-3 then conversion and evaluation
+        counters = (window_conv, window_conv_dx, window_conv_wgrad,
+                    sine_excitation, pd_fixed_block, pd_adaptive_block,
+                    pd_fixed_chain, fused_conv1d, down_chain_fwd)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_path = time.perf_counter()
+        embs, feats, norm = front_end()
+        torch.cuda.synchronize()
+        front_end_s = time.perf_counter() - t_path
+        inp = conversion_inputs(embs, feats, norm)
+        nb, tp = inp["ppg"].shape[:2]
+        masks = taco.prenet_masks(tp, nb, generator=masks_gen)
+        vrng.manual_seed(26)
+        vstate = vrng.get_state()
+        mb, y = convert(inp, masks)
+        metrics = evaluate_all(feats, inp, y)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t_path
+        peak = torch.cuda.max_memory_allocated()
+        launches = {c.__name__: c.launches for c in counters}
+        ran = ("window_conv", "sine_excitation", "pd_fixed_block",
+               "pd_adaptive_block")
+        require(all(launches[k] > 0 for k in ran)
+                and all(v == 0 for k, v in launches.items() if k not in ran),
+                f"B02 front end -> conversion launched {launches}; want "
+                f"each of {ran} and nothing else")
+        require(tuple(mb.shape) == (nb, tp, 63) and tuple(y.shape) == (
+            nb, tp * VHOP, 1) and torch.isfinite(mb).all().item()
+            and torch.isfinite(y).all().item(),
+            f"conversion output {tuple(mb.shape)}, {tuple(y.shape)}")
+        for utt, f in feats.items():
+            n = len(f["f0"])
+            require(f["ppg"].shape == (n, 256) and f["mcep"].shape == (n, 60)
+                    and f["bap"].shape == (n, 3) and all(
+                        f[k].shape == (n, 1) for k in ("lf0", "vuv", "lft"))
+                    and all(np.isfinite(f[k]).all() for k in f),
+                    f"B02 features of {utt}: shapes or values")
+            require(f["vuv"].mean() > 0.5, f"{utt}: Harvest voiced "
+                    f"{f['vuv'].mean():.2f} of the frames")
+        require(all(np.isfinite(v).all() and v[0] > 0
+                    for v in metrics.values()), f"metrics {metrics}")
+        mel = np.mean([v[0] for v in metrics.values()])
+        mcd = np.mean([v[1] for v in metrics.values()])
+        say(f"B02 front end -> conversion ({nb} x {FE_SECONDS:.0f} s), first "
+            f"pass: front end {front_end_s:.3f} s ({audio_s / front_end_s:.2f}"
+            f" audio-s/s), with scalers, decode, vocoder and metrics "
+            f"{path_s:.3f} s ({audio_s / path_s:.2f} audio-s/s); frames "
+            f"{inp['lengths'].tolist()}; mel L1 {mel:.4f}, MCD {mcd:.3f} dB "
+            f"(random weights); launches {launches}")
+        say(f"B02 front end -> conversion peak memory: {peak / 2**30:.3f} GiB")
+        t_warm = time.perf_counter()
+        embs_w, feats_w, norm_w = front_end()
+        torch.cuda.synchronize()
+        warm_fe_s = time.perf_counter() - t_warm
+        inp_w = conversion_inputs(embs_w, feats_w, norm_w)
+        evaluate_all(feats_w, inp_w, convert(inp_w, masks)[1])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t_warm
+        say(f"B02 front end -> conversion again, warm: front end "
+            f"{warm_fe_s:.3f} s ({audio_s / warm_fe_s:.2f} audio-s/s), whole "
+            f"{warm_s:.3f} s ({audio_s / warm_s:.2f} audio-s/s)")
+        phases["b02_front_end_path_s"] = time.perf_counter() - t
+
+        # (2) each stage alone, warm
+        t = time.perf_counter()
+        hop = world_hop(VSR, cfg["shiftms"])
+        alpha = mcepalpha(VSR)
+        a24 = [resample(a, sr, VSR) for _, a, sr in utts]
+        a16 = [resample(a, sr, 16000) for _, a, sr in utts]
+        x24 = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+               for a in a24]
+        x16 = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+               for a in a16]
+        f0s = [harvest_f0(a, fs=VSR, f0_floor=f0min, f0_ceil=f0max,
+                          frame_period_ms=cfg["shiftms"]).astype(np.float32)
+               for a in a24]
+        f0d = [torch.from_numpy(f).to(dev) for f in f0s]
+        pos = [torch.arange(len(f), device=dev) * hop for f in f0s]
+        sps = [cheaptrick(x, f, p, fs=VSR) for x, f, p in zip(x24, f0d, pos)]
+        stage = {
+            "harvest 24 kHz (host)": lambda: [harvest_f0(
+                a, fs=VSR, f0_floor=f0min, f0_ceil=f0max,
+                frame_period_ms=cfg["shiftms"]) for a in a24],
+            "hubert": lambda: [hubert(x) for x in x16],
+            "cheaptrick": lambda: [cheaptrick(x, f, p, fs=VSR)
+                                   for x, f, p in zip(x24, f0d, pos)],
+            "band_aperiodicity": lambda: [band_aperiodicity(x, f, p, fs=VSR)
+                                          for x, f, p in zip(x24, f0d, pos)],
+            "sp2mc": lambda: [sp2mc(s, 59, alpha) for s in sps],
+            "loudness": lambda: [loudness_extract_frames(x, VSR, VHOP)
+                                 for x in x24],
+            "conversion (decode + vocoder)": lambda: convert(inp, masks),
+        }
+        stage_s = {}
+        with torch.inference_mode():
+            for name, fn in stage.items():
+                fn()  # warm-up: cuFFT plans, cuDNN algorithms
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                stage_s[name] = time.perf_counter() - t0
+            for name, s in stage_s.items():
+                say(f"B02 stage {name}: {s:.4f} s for {audio_s:.0f} audio-s, "
+                    f"{audio_s / s:.1f} audio-s/s")
+            # HuBERT's busy share: the device time of one forward (two
+            # queued behind a spin, CUDA events; eight forwards' ~2000
+            # launches overflow the launch queue behind it) x 8, and the
+            # profiler's kernel sum, each over the wall time of the same 8
+            # forwards unprofiled
+            wall = stage_s["hubert"] * 1e3
+            dev_ms = len(x16) * queued_ms(lambda: hubert(x16[0]), iters=2,
+                                          spin_cycles=HUBERT_SPIN_CYCLES)
+            per_kernel = device_ms(stage["hubert"], n=1)
+            busy = sum(per_kernel.values())
+            say(f"B02 hubert busy: {dev_ms:.3f} ms of device time (events) "
+                f"in {wall:.3f} ms wall, {dev_ms / wall:.1%}; profiler "
+                f"kernels {busy:.3f} ms" + (
+                    f" ({busy / wall:.1%})" if busy > 0 else
+                    " (not measured: the profiler recorded no kernel)"))
+            for kname, ms in list(per_kernel.items())[:8]:
+                say(f"  {ms:8.4f} ms {ms / busy:6.1%}  {kname[:110]}")
+        phases["b02_front_end_stages_s"] = time.perf_counter() - t
+
+        # (3) the card against the CPU (f32 and f64)
+        t = time.perf_counter()
+        holds = {}
+        with torch.inference_mode():
+            x2 = x16[0][:int(HUBERT_HOLD_S * 16000)]
+            holds["hubert units"] = hold_b02(
+                "hubert units", hubert(x2), copy.deepcopy(hubert).cpu()(
+                    x2.cpu()), copy.deepcopy(hubert).cpu().double()(
+                    x2.cpu().double()))
+            rows = {"mcep": [], "bap": [], "loudness": []}
+            same = frames = 0
+            for a, f0, f in zip(a24, f0s, feats.values()):
+                # the pipeline's analysis (f64 compute) on the card, against
+                # the CPU's f32 and f64
+                kw = dict(fs=VSR, hop=hop)
+                got = world_analyze(a, f0, device=dev, **kw)
+                c32 = world_analyze(a, f0, device="cpu", dtype=torch.float32,
+                                    **kw)
+                c64 = world_analyze(a, f0, device="cpu", **kw)
+                for k, i in (("mcep", 0), ("bap", 1)):
+                    rows[k].append(hold_b02(k, got[i], c32[i], c64[i]))
+                # continuous log-F0 and V/UV, here and on the main path
+                n = len(f["lf0"])
+                same += int(np.array_equal(got[2], c32[2])
+                            and np.array_equal(got[3], c32[3])
+                            and np.array_equal(f["lf0"][:, 0], c32[2][:n])
+                            and np.array_equal(f["vuv"][:, 0], c32[3][:n]))
+                frames += len(f0)
+                xa = torch.as_tensor(a, dtype=torch.float32)
+                rows["loudness"].append(hold_b02(
+                    "loudness", loudness_extract_frames(xa.to(dev), VSR,
+                                                        VHOP),
+                    loudness_extract_frames(xa, VSR, VHOP),
+                    loudness_extract_frames(xa.double(), VSR, VHOP)))
+            for k, r in rows.items():
+                holds[k] = max(r, key=lambda h: h["card err"])
+            require(same == len(a24), f"continuous lf0 / V/UV differ on "
+                    f"{len(a24) - same} utterances")
+            holds["lf0 and vuv"] = f"equal on all {frames} frames"
+
+            # the conversion: decode on the CPU on the same prenet masks by
+            # phase 20's rule; the vocoder on utterances B02_VOC_HELD fed
+            # the card's mcep | bap and the excitation the card drew
+            cpu_in = {k: torch.from_numpy(v) for k, v in inp.items()}
+            mb_cpu = decode_batch(taco_cpu, cpu_in["ppg"], cpu_in["lengths"],
+                                  cpu_in["lft"], cpu_in["lf0"],
+                                  cpu_in["emb"], prenet_masks=masks)
+            scale = mb_cpu.abs().max().item()
+            err = (mb.cpu() - mb_cpu).abs().max().item()
+            dec = {"err / max |y|": err / scale, "held to": "CPU f32, "
+                   f"limit {TOL_DECODE[torch.float32]}"}
+            if err > TOL_DECODE[torch.float32] * scale:
+                mb64 = decode_batch(copy.deepcopy(taco_cpu).double(),
+                                    *(cpu_in[k].double() if k != "lengths"
+                                      else cpu_in[k] for k in (
+                                          "ppg", "lengths", "lft", "lf0",
+                                          "emb")), prenet_masks=masks)
+                e64 = (mb.cpu().double() - mb64).abs().max().item()
+                e32 = (mb_cpu.double() - mb64).abs().max().item()
+                dec = {"err / max |y|": e64 / scale, "held to": f"CPU f64, "
+                       f"limit {F32_FACTOR} x {e32 / scale:.3e}"}
+                require(e64 <= F32_FACTOR * e32, f"B02 conversion decode: "
+                        f"{dec}")
+            holds["conversion decode"] = dec
+            sel = list(B02_VOC_HELD)
+            replay = torch.Generator(device=dev)
+            replay.set_state(vstate)
+            exc = vsg(torch.from_numpy(inp["f0"]).to(dev), replay)[sel].cpu()
+            aux = torch.cat([mb[:, :1], mb[:, :1], mb, mb[:, -1:],
+                             mb[:, -1:]], 1)[sel].cpu()
+            y_cpu, _ = voc_cpu(exc, aux, cpu_in["df"][sel])
+            scale = y_cpu.abs().max().item()
+            err = (y[sel].cpu() - y_cpu).abs().max().item()
+            holds["conversion vocoder"] = {
+                "utterances": sel, "err / max |y|": err / scale,
+                "limit": TOL_DECODE[torch.float32]}
+            require(err <= TOL_DECODE[torch.float32] * scale,
+                    f"B02 conversion vocoder: {holds['conversion vocoder']}")
+            worst = 0.0
+            for bi, (utt, f) in enumerate(feats.items()):
+                cpu_m = pair_metrics(
+                    f["wave"], VSR, y[bi, :inp["lengths"][bi] * VHOP, 0]
+                    .cpu().numpy(), VSR, device="cpu")
+                worst = max(worst, *(abs(c - g) / abs(c) for c, g in zip(
+                    cpu_m, metrics[utt])))
+            holds["mel L1 and MCD"] = {"max rel err": worst,
+                                       "limit": TOL_B02_EVAL}
+            require(worst <= TOL_B02_EVAL, f"metrics card vs CPU: {worst}")
+        for name, h in holds.items():
+            say(f"B02 front end hold {name}: {h}")
+        phases["b02_front_end_holds_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {k: v for k, v in launches.items() if v}
+
+
 def main():
     # 1. device
     require(torch.cuda.is_available(), "no CUDA device: chip_smoke.py runs "
@@ -2985,10 +3429,17 @@ def main():
     t = time.perf_counter()
     fe_launches = front_end_phase(dev, phases, g32, sg)
     say(f"phase 23 (front end -> decode): {time.perf_counter() - t:.1f} s")
+
+    # 24. the B02 front end (recipe stages 0-3) on the card, then conversion
+    t = time.perf_counter()
+    b02_fe_launches = b02_front_end_phase(dev, phases)
+    say(f"phase 24 (B02 front end -> conversion): "
+        f"{time.perf_counter() - t:.1f} s")
     paths = {"decode": launches, "train": train_launches, **voc_launches,
              "decode_chain": down_launches, **fused_paths,
              "train_k_steps": k_launches, **b02_paths,
-             "front_end_decode": fe_launches}
+             "front_end_decode": fe_launches,
+             "b02_front_end_conversion": b02_fe_launches}
     for row in kernels:
         name = row["name"].split(" ")[0]
         row["launches_by_path"] = {p: n.get(name, 0) for p, n in paths.items()}

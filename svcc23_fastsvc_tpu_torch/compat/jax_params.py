@@ -5,17 +5,19 @@
 `subfreq_discriminator_state_dict_from_jax` are the inverses of the JAX
 package's `compat/torch_weights.py::convert_fastsvc_generator`,
 `convert_melgan_msd`, `convert_hnusfgan`, `convert_tacotron2` and
-`convert_subfreq_discriminator`, and `conformer_ppg_state_dict_from_jax`
-and `xvector_state_dict_from_jax` those of `models/conformer_ppg.py::
-convert_ppg_state_dict` and `models/xvector.py::
-convert_xvector_state_dict`; `downsample_block_state_dict_from_jax`
+`convert_subfreq_discriminator`, and `conformer_ppg_state_dict_from_jax`,
+`xvector_state_dict_from_jax` and `hubert_state_dict_from_jax` those of
+`models/conformer_ppg.py::convert_ppg_state_dict`, `models/xvector.py::
+convert_xvector_state_dict` and `models/hubert.py::
+convert_hubert_state_dict`; `downsample_block_state_dict_from_jax`
 carries one of the generator's DownsampleBlocks. Each takes a JAX param
 pytree as numpy arrays, either in weight-norm form ({"v", "g", "b"} leaves,
 WIO v) or folded ({"w", "b"}), and returns a state dict with the reference
 torch keys that `models.fastsvc.FastSVCGenerator`, `DownsampleBlock`,
 `MelGANMultiScaleDiscriminator`, `models.hnusfgan.HNUSFGANGenerator`,
 `models.tacotron2.Tacotron2`, `MultiSubFreqDiscriminator`,
-`models.conformer_ppg.ConformerPPG` or `models.xvector.XVector` loads
+`models.conformer_ppg.ConformerPPG`, `models.xvector.XVector` or
+`models.hubert.HubertSoft` loads
 (built with `use_weight_norm` matching the form). No JAX import: the arrays only
 need `numpy.asarray`.
 """
@@ -243,4 +245,42 @@ def xvector_state_dict_from_jax(params) -> dict:
         _conv(sd, f"blocks.{3 * i}.conv", bp["conv"])
         _bn_sd(sd, f"blocks.{3 * i + 2}.norm", bp["bn"])
     _linear_sd(sd, f"blocks.{3 * len(params['blocks']) + 1}.w", params["fc"])
+    return sd
+
+
+def hubert_state_dict_from_jax(params) -> dict:
+    """JAX HubertSoft params -> bshall's (and the port's) state dict: the
+    inverse of JAX `convert_hubert_state_dict`. The positional conv's WIO
+    weight w becomes weight_v = w (O, I, K) with weight_g = ||w|| over
+    dims (0, 1), which the port's weight-norm conv turns back into w."""
+    sd = {}
+    ext = params["extractor"]
+    for i, p in enumerate(ext["convs"]):
+        sd[f"feature_extractor.conv{i}.weight"] = _t(
+            np.asarray(p["w"]).transpose(2, 1, 0))
+    for prefix, p in (("feature_extractor.norm0", ext["norm0"]),
+                      ("feature_projection.norm",
+                       params["projection"]["norm"]),
+                      ("norm", params["norm"])):
+        sd[f"{prefix}.weight"] = _t(p["w"])
+        sd[f"{prefix}.bias"] = _t(p["b"])
+    _linear_sd(sd, "feature_projection.projection",
+               params["projection"]["linear"])
+    w = np.asarray(params["pos_conv"]["w"], np.float32).transpose(2, 1, 0)
+    sd["positional_embedding.conv.weight_v"] = _t(w)
+    sd["positional_embedding.conv.weight_g"] = _t(
+        np.linalg.norm(w, axis=(0, 1), keepdims=True))
+    sd["positional_embedding.conv.bias"] = _t(params["pos_conv"]["b"])
+    for i, lp in enumerate(params["layers"]):
+        pre = f"encoder.layers.{i}"
+        sd[f"{pre}.self_attn.in_proj_weight"] = _t(
+            np.asarray(lp["attn"]["in_proj"]["w"]).T)
+        sd[f"{pre}.self_attn.in_proj_bias"] = _t(lp["attn"]["in_proj"]["b"])
+        _linear_sd(sd, f"{pre}.self_attn.out_proj", lp["attn"]["out_proj"])
+        _linear_sd(sd, f"{pre}.linear1", lp["linear1"])
+        _linear_sd(sd, f"{pre}.linear2", lp["linear2"])
+        for name in ("norm1", "norm2"):
+            sd[f"{pre}.{name}.weight"] = _t(lp[name]["w"])
+            sd[f"{pre}.{name}.bias"] = _t(lp[name]["b"])
+    _linear_sd(sd, "proj", params["proj"])
     return sd

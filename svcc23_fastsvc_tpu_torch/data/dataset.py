@@ -103,25 +103,29 @@ class B02Dataset:
     """The B02 acoustic model's fields of every utterance under a dump
     directory, per item (utt_id, wave, f0, ppg (T', 256), lft (T', 1), lf0
     (T', 1), vuv, mcep (T', 60), bap (T', 3), spk_emb), read on first use
-    and kept (decode reads each utterance once per target speaker)."""
+    and, with allow_cache, kept (decode reads each utterance once per
+    target speaker; the scalers' fit reads each once)."""
 
     FIELDS = ("wave", "f0", "ppg", "lft", "lf0", "vuv", "mcep", "bap",
               "spk_emb")
 
-    def __init__(self, root_dir: str):
+    def __init__(self, root_dir: str, *, allow_cache: bool = True):
         files = find_files(root_dir)
         if not files:
             raise FileNotFoundError(f"no .h5 files under {root_dir}")
         self.files = files
         self.utt_ids = [os.path.splitext(os.path.basename(f))[0] for f in files]
-        self._cache = {}
+        self._cache = {} if allow_cache else None
 
     def __len__(self):
         return len(self.files)
 
     def __getitem__(self, idx: int):
-        if idx not in self._cache:
-            self._cache[idx] = (self.utt_ids[idx],) + tuple(
-                np.asarray(read_hdf5(self.files[idx], name))
-                for name in self.FIELDS)
-        return self._cache[idx]
+        if self._cache is not None and idx in self._cache:
+            return self._cache[idx]
+        item = (self.utt_ids[idx],) + tuple(
+            np.asarray(read_hdf5(self.files[idx], name))
+            for name in self.FIELDS)
+        if self._cache is not None:
+            self._cache[idx] = item
+        return item

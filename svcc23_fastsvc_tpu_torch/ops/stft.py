@@ -3,7 +3,8 @@
 Counterpart of `svcc23_fastsvc_tpu/ops/stft.py` (`hann_window`,
 `frame_signal`, `stft`, `stft_magnitude`, the librosa-0.8.1 auxiliaries
 `fft_frequencies`, `a_weighting_db`, `power_to_db`, `db_to_amplitude`,
-`loudness_extract`, and the slaney `mel_filterbank`), with torch.stft
+`loudness_extract` and its frame-rate half `loudness_extract_frames`, and
+the slaney `mel_filterbank`), with torch.stft
 semantics: center=True pads fft_size // 2 on both sides (reflect unless
 `pad_mode="constant"`), a window of win_length (periodic Hann unless one is
 given) zero-padded (centred) to fft_size, and the reference loss's 1e-7
@@ -116,21 +117,28 @@ def db_to_amplitude(S_db, ref: float = 1.0):
     return ref * torch.pow(10.0, 0.5 * S_db / 10.0)
 
 
-def loudness_extract(audio, sampling_rate: int, hop_length: int,
-                     n_fft: int = 2048):
-    """A-weighted log-loudness at sample rate: (T,) ->
-    ((T // hop + 1) * hop_length,).
+def loudness_extract_frames(audio, sampling_rate: int, hop_length: int,
+                            n_fft: int = 2048):
+    """A-weighted log-loudness per frame: (T,) -> (T // hop_length + 1,).
 
     librosa.stft(hop) -> power -> A-weighting + power_to_db (80 dB below
     the utterance's max) -> db_to_amplitude -> mean over frequency ->
-    log(. + 1e-5) -> nearest upsampling by hop_length."""
+    log(. + 1e-5) (the B02 recipe's frame-rate loudness)."""
     power = stft_magnitude(audio, n_fft, hop_length, n_fft, power=True,
                            clamp_min=0.0).T  # (freq, frames)
     weights = torch.as_tensor(
         a_weighting_db(fft_frequencies(sampling_rate, n_fft)),
         dtype=power.dtype, device=power.device)
     loud = db_to_amplitude(power_to_db(power) + weights[:, None])
-    loud = torch.log(loud.mean(dim=0) + 1e-5)  # (frames,)
+    return torch.log(loud.mean(dim=0) + 1e-5)
+
+
+def loudness_extract(audio, sampling_rate: int, hop_length: int,
+                     n_fft: int = 2048):
+    """A-weighted log-loudness at sample rate: (T,) ->
+    ((T // hop + 1) * hop_length,), `loudness_extract_frames` repeated
+    hop_length times (FastSVC's)."""
+    loud = loudness_extract_frames(audio, sampling_rate, hop_length, n_fft)
     return nearest_upsample(loud[None, :, None], hop_length, axis=1)[0, :, 0]
 
 

@@ -31,7 +31,15 @@ missing = sorted({"svcc23_fastsvc_tpu_torch.ops.down_chain",
                   "svcc23_fastsvc_tpu_torch.dsp.trim",
                   "svcc23_fastsvc_tpu_torch.models.conformer_ppg",
                   "svcc23_fastsvc_tpu_torch.models.xvector",
-                  "svcc23_fastsvc_tpu_torch.utils.scalers"} - set(names))
+                  "svcc23_fastsvc_tpu_torch.utils.scalers",
+                  "svcc23_fastsvc_tpu_torch.dsp.world",
+                  "svcc23_fastsvc_tpu_torch.models.hubert",
+                  "svcc23_fastsvc_tpu_torch.bin.preprocess_b02",
+                  "svcc23_fastsvc_tpu_torch.bin.compute_statistics_b02",
+                  "svcc23_fastsvc_tpu_torch.bin.normalize_b02",
+                  "svcc23_fastsvc_tpu_torch.bin.evaluate",
+                  "svcc23_fastsvc_tpu_torch.bin.split_train_dev",
+                  "svcc23_fastsvc_tpu_torch.utils.metrics"} - set(names))
 print(len(names), bad + missing)
 """
 

@@ -1416,3 +1416,60 @@ def test_b02_steps_on_the_card_match_the_cpu(cuda, switch):
                 continue
             moved = (v - first[k]).abs().max().item()
             assert (got[k] - v).abs().max().item() <= 1e-3 * moved + 1e-7, k
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = saved
+
+
+def _b02_singing(seconds=0.5, sr=24000, seed=0):
+    r = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    phase = 2 * np.pi * np.cumsum(200.0 * (1 + 0.03 * np.sin(
+        2 * np.pi * 5 * t))) / sr
+    x = 0.3 * sum(0.5 ** k * np.sin((k + 1) * phase) for k in range(5))
+    return x + 0.003 * r.standard_normal(len(t))
+
+
+def test_b02_world_analysis_on_the_card_matches_the_cpu(cuda):
+    """The B02 pipeline's WORLD analysis (f64 compute) on the card within
+    1e-5 of max |y| of the CPU's; continuous log-F0 and V/UV equal."""
+    from svcc23_fastsvc_tpu_torch.dsp.world import world_analyze
+
+    x = _b02_singing()
+    f0 = np.where(np.arange(len(x) // 159 + 1) % 17 < 14, 200.0,
+                  0.0).astype(np.float32)
+    got = world_analyze(x, f0, fs=24000, hop=159, device=cuda)
+    want = world_analyze(x, f0, fs=24000, hop=159, device="cpu")
+    for g, w in zip(got[:2], want[:2]):
+        assert g.shape == w.shape and np.isfinite(g).all()
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_hubert_and_metrics_on_the_card_match_the_cpu(no_tf32):
+    """HuBERT-soft (small widths, f32, TF32 off) within 1e-4 of max |y| of
+    the CPU's; mel L1 and MCD within 1e-4 relative."""
+    from svcc23_fastsvc_tpu_torch.models.hubert import HubertSoft
+    from svcc23_fastsvc_tpu_torch.utils.metrics import mel_l1, wav_mcd
+
+    torch.manual_seed(0)
+    model = HubertSoft(d_model=96, n_layers=2, n_heads=4, ff_dim=192,
+                       conv_dim=64, unit_dim=32).eval()
+    x = torch.from_numpy(_b02_singing(1.0, 16000).astype(np.float32))
+    y = torch.from_numpy(_b02_singing(1.0, 16000, seed=1).astype(
+        np.float32))
+    with torch.inference_mode():
+        want = model(x)
+        got = model.to(no_tf32)(x.to(no_tf32)).cpu()
+        assert got.shape == want.shape == (1, 99, 32)
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+        for fn in (mel_l1, wav_mcd):
+            w = fn(x, y).item()
+            g = fn(x.to(no_tf32), y.to(no_tf32)).item()
+            assert abs(g - w) <= 1e-4 * abs(w), (fn.__name__, g, w)
