@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FastSVC decode and training paths, the B02
 vocoder's synthesis and the B02 acoustic model's decode and training on one
-H100, each fused-chain mode and the fused-conv switch too, FastSVC
-training at the recipe's K steps a call as captured CUDA graphs, and the
-FastSVC and B02 front ends (wavs to features to conversion).
+H100, each fused-chain mode and the fused-conv switch too, FastSVC and B02
+training at K steps a call as captured CUDA graphs, the FastSVC and B02
+front ends (wavs to features to conversion), the recipe's batch loader,
+the HiFiGAN discriminator and the trainer's options.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
@@ -108,8 +109,8 @@ Phases, each printed on one line with its elapsed seconds:
    for both the variant that ran and the device times (`queued_ms`) of the
    kernel, the library call and the launches displaced.
 18. FastSVC training with FASTSVC_PALLAS_CONV=1, after the "auto" probe
-   passed on the card: phase 7 (against CPU f64,
-   two steps bit for bit) and phase 8 (`Trainer.run`, rates, launches per
+   passed on the card: phase 7 (its gan_step against CPU f64, two steps
+   bit for bit) and phase 8 (`Trainer.run`, rates, launches per
    step of #5, #6 and the window convs) again, and the device time by
    kernel of one bf16 gan_step.
 19. decode with the switch on: exactly 59 fused-conv, 1 window-conv (the
@@ -128,22 +129,24 @@ Phases, each printed on one line with its elapsed seconds:
    in phases 7-9: a captured 8-step gen call and gan call
    (`train/graphs.py`, the recipe's noise on) against 8 eager steps each
    from the same state, metrics and G, D, moments, counts and noise state
-   bit for bit, bf16 (packed wire) and f32; `Trainer.run` on phase 8's
-   schedule with calls of 8 and 2 (split at the log interval), the rates,
-   waits and peak memory of each phase's timed interval beside phase 8's;
+   bit for bit, bf16 (packed wire) and f32; `Trainer.run` in f32 on
+   phase 8's schedule with calls of 8 and 2 (split at the log interval),
+   the rates, waits and peak memory of each phase's timed interval beside
+   phase 8's (phase 25 runs the recipe's bf16 at K = 8);
    one bf16 8-step gan call's device time (the replay's event time, and
    the profile's kernel sum) and busy share beside phase 9's gan_step.
 22. B02 training (the Tacotron2 and MultiSubFreqDiscriminator at
    conf/taco2.yaml's width, random weights from a seed, cuDNN
-   deterministic): one gen_step and one gan_step on 2 x 400 frames, f32 on
-   the card against the CPU in f32 and f64 (phase 7's rule) on the same
-   dropout masks and window starts; two gan_steps from one state on 16 x
-   400 frames, f32 and bf16, gradients bit for bit; `Trainer.run` on an
-   in-memory 16 x 400 dataset in B02Dataset's layout, 4 gen_steps then 4
-   gan_steps, bf16 (packed wire) and f32, with the switch off (#2, #3, #4
-   launched in every step) and, after the "auto" probe, on (#5 and #6 in
-   every step): finite losses, steps/s and frames/s of each phase's second
-   log interval of 2 steps, launches per step, peak memory, the last
+   deterministic): one gan_step on 2 x 400 frames (its G update is the
+   gen_step's), f32 on the card against the CPU in f32 and f64 (phase
+   7's rule) on the same dropout masks and window starts; two gan_steps
+   from one state on 16 x 400 frames, f32 and bf16, gradients bit for
+   bit; `Trainer.run` on an in-memory 16 x 400 dataset in B02Dataset's
+   layout, 4 gen_steps then 4 gan_steps, bf16 (packed wire) and f32 with
+   the switch off (#2, #3, #4 launched in every step) and, after the
+   "auto" probe, bf16 with it on (#5 and #6 in every step): finite
+   losses, steps/s and frames/s of each phase's second log interval of 1
+   step, launches per step, peak memory, the last
    checkpoint reloaded into a fresh task and into `load_acoustic_model`;
    one bf16 gan_step's busy share under torch.profiler; #2-#6 at the bap
    stream's training shapes (batch 16) against their plain versions, with
@@ -181,6 +184,35 @@ Phases, each printed on one line with its elapsed seconds:
    distance from f64 or 1e-5 of max |y|, continuous log-F0 and V/UV
    equal, the decode by phase 20's rule, the vocoder on two utterances
    within 1e-3 of max |y|, mel L1 and MCD within 1e-3 relative.
+25. the recipe's loader: `Trainer.run` on egs/svcc23/fastsvc1/conf/
+   fastsvc.yaml as it is (bf16, packed wire, `steps_per_call: 8`), the
+   schedule cut to 8 gen and 16 gan steps, the batches from the training
+   CLI's `make_train_batcher` over phase 8's in-memory dataset:
+   `loader_threads: 4` must build the native producer (C++ threads, the
+   host g++ build) and the run must take every batch from it; then
+   `loader_threads: 1` (the batcher behind the trainer's prefetch
+   thread); steps/s, audio-s/s and the data wait of each's last interval.
+26. B02 training at K steps a call (phase 22's width, 16 x 400 frames,
+   cuDNN deterministic): captured calls, bf16 (packed wire) a 2-step gen
+   call and a 4-step gan call, f32 a 2-step gan call, each against K
+   eager steps from the same state, bit for bit (metrics, G and D with
+   their batch-norm statistics, moments, counts, the draws' generator);
+   the capture's seconds, the memory left reserved after it, a replayed
+   call's steps/s against the eager steps' and its busy share; the kernel
+   nodes of the f32 2-step gan call (one replay's kernel records).
+27. the HiFiGAN MSD + MPD (the JAX model's defaults: 3 scales, periods 2,
+   3, 5, 7, 11) with the recipe's generator: one gan_step held to CPU f64
+   by phase 7's rule, two gan_steps from one state bit for bit (f32,
+   bf16), a bf16 and an f32 gan_step on the recipe's batch with their
+   launches; #2-#4 at its stride-1 convs (K = 15 at 1 -> 128, K = 5 at
+   1024 -> 1024, K = 3 at 1024 -> 1; and the MelGAN discriminator's two
+   512-channel ones) against their plain versions, with their times,
+   device times, cuDNN's and the bound.
+28. `Trainer.run` at full width, bf16 and f32, with
+   `generator_train_start_steps` 4 (the count jumps to 5, two gan_steps
+   run), an eval and two intermediate dumps at step 7 and a
+   `profile_dir`: the calls, counts and checkpoint, the dumps' generated
+   wavs equal to the task's eager `predict`, the trace's kernel records.
 
 The line before the last is the kernels' JSON; the last line is
 `{"ok": true, "device": {...}}`, printed only when every phase passed. A
@@ -537,11 +569,12 @@ def hold_to_f64(losses, grads, whos):
     return loss_rows, grad_rows
 
 
-def train_vs_cpu(dev, items, what=""):
-    """Phase 7 (and 18): one gen_step and one gan_step of the recipe's full
-    width on the card against the CPU, each from the seed's weights; then two
-    gan_steps from one state on the recipe's batch, f32 and bf16, with
-    bit-identical gradients."""
+def train_vs_cpu(dev, items, what="", config=None, steps=("gen", "gan")):
+    """Phase 7 (and 18, 27): one gen_step and one gan_step (`steps`) of the
+    recipe's full width (`config`, TRAIN_CONFIG by default) on the card
+    against the CPU, each from the seed's weights; then two gan_steps from
+    one state on the recipe's batch, f32 and bf16, with bit-identical
+    gradients."""
     from svcc23_fastsvc_tpu_torch.config import build_train_task
     from svcc23_fastsvc_tpu_torch.data.collate import FastSVCBatcher
     from svcc23_fastsvc_tpu_torch.data.wire import to_device
@@ -563,12 +596,13 @@ def train_vs_cpu(dev, items, what=""):
     # ill-conditioned at this size that a 1e-7 relative change of the weights
     # moves it by ~1% (f64, CPU), so after one f32 update the card's and the
     # CPU's next gradients are no longer comparable
+    config = TRAIN_CONFIG if config is None else config
     losses, grads = {}, {}
-    for phase in ("gen", "gan"):
+    for phase in steps:
         for label, where, dtype in (("cpu f64", "cpu", torch.float64),
                                     ("cpu f32", "cpu", torch.float32),
                                     ("card f32", dev, torch.float32)):
-            task = build_train_task(TRAIN_CONFIG, device=where, seed=3)
+            task = build_train_task(config, device=where, seed=3)
             task.generator.to(dtype)
             task.discriminator.to(dtype)
             log = grads.setdefault(label, [])
@@ -584,10 +618,11 @@ def train_vs_cpu(dev, items, what=""):
             losses.setdefault(label, {}).update(
                 {f"{phase} {k}": float(v) for k, v in m.items()})
             del task
-    loss_rows, grad_rows = hold_to_f64(losses, grads, ("G gen", "G gan",
-                                                        "D gan"))
+    whos = (("G gen",) if "gen" in steps else ()) + (
+        ("G gan", "D gan") if "gan" in steps else ())
+    loss_rows, grad_rows = hold_to_f64(losses, grads, whos)
     say(f"{what}train step vs CPU f64 (card f32 and CPU f32, B=2 x 16000, "
-        f"gen_step and gan_step each from the seed's weights): loss rel "
+        f"{' and '.join(steps)} step each from the seed's weights): loss rel "
         f"errs (card, cpu f32) {loss_rows}")
     say(f"  gradients: {grad_rows}; card losses {losses['card f32']}")
 
@@ -599,7 +634,7 @@ def train_vs_cpu(dev, items, what=""):
     for dt_name in ("float32", "bfloat16"):
         runs = []
         for _ in range(2):
-            task = build_train_task({**TRAIN_CONFIG, "compute_dtype": dt_name},
+            task = build_train_task({**config, "compute_dtype": dt_name},
                                     device=dev, seed=3)
             log = []
             task.g_opt.step = recording(task.g_opt.step, log)
@@ -793,7 +828,8 @@ def k_step_phase(dev, items, counters, rates_1, step_profile):
         want_calls = [KSTEPS, 2] * 4  # split at the log interval (10)
         workdir = tempfile.mkdtemp(prefix="chip_smoke_train_k_")
         try:
-            for dt_name, wire in (("bfloat16", "packed"), ("float32", "f32")):
+            # f32 only: phase 25 runs the recipe's bf16 at K = 8
+            for dt_name, wire in (("float32", "f32"),):
                 cfg = {**TRAIN_CONFIG, "compute_dtype": dt_name,
                        "wire_format": wire, "steps_per_call": KSTEPS}
                 task = build_train_task(cfg, device=dev, seed=7)
@@ -871,7 +907,7 @@ def k_step_phase(dev, items, counters, rates_1, step_profile):
         end.record()
         end.synchronize()
         replay_ms = start.elapsed_time(end)
-        per_kernel = device_ms(call, n=1)
+        per_kernel = device_ms(call, n=1, host_ops=False)
         kernels_ms = sum(per_kernel.values())
         say(f"profile K = {KSTEPS} gan call bf16 (B={TB} x 16000): wall "
             f"{wall_ms:.3f} ms/call ({wall_ms / KSTEPS:.3f} ms/step), "
@@ -1596,7 +1632,10 @@ def fused_conv_phases(dev, phases, items, gens, sg, inputs, rng_states,
         require(decide_conv_lowering(dev) == "fused+window",
                 "the auto probe did not pass")
         set_pallas_conv_mode("1")
-        train_vs_cpu(dev, items, "with the fused conv: ")
+        # the gan_step only (phase 7 holds the gen_step too): its G update
+        # runs the gen_step's convs, and the CPU f64 reference of a second
+        # step is the costliest check of the script
+        train_vs_cpu(dev, items, "with the fused conv: ", steps=("gan",))
         train_rates, train_launches = trainer_run(
             dev, items, counters, "with the fused conv: ")
         # device time of one bf16 gan_step, beside phase 9's
@@ -1776,7 +1815,7 @@ def b02_phase(dev):
         batch()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t_wall) * 1e3
-        per_kernel = device_ms(batch, n=1)
+        per_kernel = device_ms(batch, n=1, host_ops=False)
         busy = sum(per_kernel.values())
         say(f"profile B02 decode {str(dtype)[6:]}: wall {wall_ms:.3f} ms/batch, "
             f"kernels {busy:.3f} ms, busy {busy / wall_ms:.1%}")
@@ -1822,7 +1861,7 @@ def b02_phase(dev):
 # with that file, batch 16 x 400 frames); the phase split and the
 # intervals are cut to B02_STEPS gen_steps then B02_STEPS gan_steps, each
 # phase a warm-up interval of B02_LOG steps and a timed one
-B02_LOG = 2
+B02_LOG = 1
 B02_STEPS = 2 * B02_LOG
 TB3, TF3 = 16, 400
 B02_TRAIN_CONFIG = {
@@ -1885,9 +1924,9 @@ def _draws_to(draws, dev):
 
 
 def b02_train_phase(dev, phases):
-    """Phase 22: B02 training at the recipe's width. (1) one gen_step and
-    one gan_step from the seed's weights on 2 x 400 frames, f32 on the card
-    against the CPU in f32 and f64 (phase 7's rule), on given draws; (2) two
+    """Phase 22: B02 training at the recipe's width. (1) one gan_step from
+    the seed's weights on 2 x 400 frames, f32 on the card against the CPU
+    in f32 and f64 (phase 7's rule), on given draws; (2) two
     gan_steps from one state on the recipe's batch, f32 and bf16, gradients
     bit for bit (cuDNN deterministic); (3) `Trainer.run`, B02_STEPS gen and
     B02_STEPS gan steps on 16 x 400 frames, bf16 (packed wire) and f32,
@@ -1938,10 +1977,13 @@ def b02_train_phase(dev, phases):
         cpu_batch = to_device(host, "cpu")
         draw_task = build_b02_task(B02_TRAIN_CONFIG, device="cpu", seed=3)
         gen = torch.Generator().manual_seed(6)
-        draws = {p: draw_task.draw(p, cpu_batch, gen) for p in ("gen", "gan")}
+        draws = {"gan": draw_task.draw("gan", cpu_batch, gen)}
         del draw_task
         losses, grads = {}, {}
-        for phase in ("gen", "gan"):
+        # the gan_step only: its G update is the gen_step's (the
+        # adversarial term gives G no gradient), and the CPU f64 reference
+        # of a second step is the costliest check of the phase
+        for phase in ("gan",):
             for label, where, dtype in (("cpu f64", "cpu", torch.float64),
                                         ("cpu f32", "cpu", torch.float32),
                                         ("card f32", dev, torch.float32)):
@@ -1964,10 +2006,10 @@ def b02_train_phase(dev, phases):
                     {f"{phase} {k}": float(v) for k, v in m.items()})
                 del task
         loss_rows, grad_rows = hold_to_f64(losses, grads,
-                                           ("G gen", "G gan", "D gan"))
+                                           ("G gan", "D gan"))
         say(f"B02 train step vs CPU f64 (card f32 and CPU f32, B=2 x {TF3} "
-            f"frames, gen_step and gan_step each from the seed's weights, "
-            f"given draws): loss rel errs (card, cpu f32) {loss_rows}")
+            f"frames, gan_step from the seed's weights, given draws): loss "
+            f"rel errs (card, cpu f32) {loss_rows}")
         say(f"  gradients: {grad_rows}; card losses {losses['card f32']}")
         phases["b02_train_vs_cpu_s"] = time.perf_counter() - t
 
@@ -2017,8 +2059,10 @@ def b02_train_phase(dev, phases):
                 for c in counters:
                     c.launches = 0
                 step_launches = {}
+                # with the switch on, bf16 only (phase 26's time)
                 for dt_name, wire in (("bfloat16", "packed"),
-                                      ("float32", "f32")):
+                                      ("float32", "f32"))[
+                                          :2 if switch == "0" else 1]:
                     cfg = {**B02_TRAIN_CONFIG, "compute_dtype": dt_name,
                            "wire_format": wire, "steps_per_call": 1}
                     task = build_b02_task(cfg, device=dev, seed=7)
@@ -2991,6 +3035,527 @@ def b02_front_end_phase(dev, phases):
     return {k: v for k, v in launches.items() if v}
 
 
+# phases 25-28: the trainer's remaining surface. Phase 25: the recipe's own
+# conf/fastsvc.yaml (loader_threads 4, steps_per_call 8, bf16, packed wire)
+# with the phase split and the intervals cut to LOADER_STEPS gen steps and
+# two intervals of gan steps
+RECIPE_YAML = os.path.join("egs", "svcc23", "fastsvc1", "conf", "fastsvc.yaml")
+LOADER_STEPS = KSTEPS
+LOADER_SCHEDULE = {
+    "discriminator_train_start_steps": LOADER_STEPS - 1,  # then gan calls
+    "train_max_steps": 3 * LOADER_STEPS,
+    "log_interval_steps": LOADER_STEPS,
+    "eval_interval_steps": 100000,
+    "save_interval_steps": 3 * LOADER_STEPS,
+}
+
+
+def loader_phase(dev, items, counters):
+    """Phase 25: `Trainer.run` on conf/fastsvc.yaml as it is (schedule cut)
+    with the batches from the CLI's `make_train_batcher`: `loader_threads`
+    4 must give the native producer, which the trainer must take batches
+    from; then `loader_threads` 1 (the batcher behind the prefetch thread).
+    The timed interval is the second of gan calls: steps/s, audio-s/s and
+    the data wait of each; launches of #1-#4 counted over both runs."""
+    from svcc23_fastsvc_tpu_torch.bin.train_fastsvc import make_train_batcher
+    from svcc23_fastsvc_tpu_torch.config import build_train_task, load_config
+    from svcc23_fastsvc_tpu_torch.data.collate import FastSVCBatcher
+    from svcc23_fastsvc_tpu_torch.data.native_batch import NativeBatchProducer
+    from svcc23_fastsvc_tpu_torch.train.loop import Trainer
+
+    recipe = load_config(os.path.join(ROOT, RECIPE_YAML))
+    require(recipe["loader_threads"] == 4
+            and recipe["steps_per_call"] == KSTEPS
+            and recipe["compute_dtype"] == "bfloat16",
+            f"{RECIPE_YAML}: loader_threads {recipe['loader_threads']}, "
+            f"steps_per_call {recipe['steps_per_call']}")
+    for c in counters:
+        c.launches = 0
+    rates = {}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_loader_")
+    try:
+        for threads in (recipe["loader_threads"], 1):
+            cfg = {**recipe, **LOADER_SCHEDULE, "loader_threads": threads}
+            task = build_train_task(cfg, device=dev, seed=7)
+            src = make_train_batcher(cfg, lambda seed: FastSVCBatcher(
+                items, batch_size=cfg["batch_size"],
+                batch_length=cfg["batch_length"], hop_size=cfg["hop_size"],
+                seed=seed), 1)
+            native = isinstance(src, NativeBatchProducer)
+            require(native == (threads > 1),
+                    f"loader_threads {threads}: built {type(src).__name__}")
+            trainer = Trainer(task, src, config=cfg,
+                              outdir=os.path.join(workdir, str(threads)))
+            try:
+                trainer.run()
+            finally:
+                if native:
+                    src.close()
+            torch.cuda.synchronize()
+            hist = trainer.history
+            require(task.step == 3 * LOADER_STEPS and len(hist) == 3
+                    and trainer.call_sizes == [KSTEPS] * 3,
+                    f"loader {threads}: {task.step} steps, calls "
+                    f"{trainer.call_sizes}")
+            require(all(np.isfinite(v) for x in hist for v in x.values()),
+                    f"loader {threads}: non-finite {hist}")
+            if native:
+                # every batch of the run came from the producer's ring
+                require(src.batches == 3 * LOADER_STEPS,
+                        f"the native producer handed out {src.batches} "
+                        f"batches for {3 * LOADER_STEPS} steps")
+            timed = hist[-1]
+            rates[f"loader_threads {threads}"] = {
+                "producer": type(src).__name__,
+                "steps_per_s": timed["steps_per_s"],
+                "audio_s_per_s": timed["audio_s_per_s"],
+                "data_wait_s": timed["data_wait_s"],
+                "step_wait_s": timed["step_wait_s"],
+                "drain_s": timed["drain_s"],
+                "batches_from_producer": getattr(src, "batches", None),
+            }
+            say(f"loader_threads {threads} ({type(src).__name__}): calls "
+                f"{trainer.call_sizes}, mean losses " + "; ".join(
+                    f"{x['step']}: G {x['generator_loss']:.4f}" for x in hist))
+            del task, trainer, src
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = {c.__name__: c.launches for c in counters}
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel was not launched on the loader's path: {launches}")
+    for k, v in rates.items():
+        say(f"train K = {KSTEPS} bf16 (the recipe's yaml), {k}: {v}")
+    say(f"loader main path: launches counted at capture {launches}")
+    return launches
+
+
+B02_KS = (2, 4)  # steps a call of the captured B02 calls
+
+
+def _b02_differing(a, b):
+    """Tensors of two B02TrainTasks' training state that differ."""
+    for opt in (a.g_opt, a.d_opt, b.g_opt, b.d_opt):
+        opt._init_state()
+    n = {who: sum(not torch.equal(u, v) for u, v in zip(
+        x.state_dict().values(), y.state_dict().values()))
+        for who, x, y in (("G", a.generator, b.generator),
+                          ("D", a.discriminator, b.discriminator))}
+    n["moments"] = sum(not torch.equal(u, v)
+                       for o, q in ((a.g_opt, b.g_opt), (a.d_opt, b.d_opt))
+                       for u, v in zip(o.mu + o.nu, q.mu + q.nu))
+    n["draws generator"] = int(not torch.equal(a.rng.get_state(),
+                                               b.rng.get_state()))
+    n["counts"] = int((a.step, a.g_opt.count, a.d_opt.count)
+                      != (b.step, b.g_opt.count, b.d_opt.count))
+    return n
+
+
+def b02_k_step_phase(dev, counters):
+    """Phase 26: B02 training at K steps a call as captured CUDA graphs, at
+    phase 22's width and batch (16 x 400 frames), cuDNN deterministic: bf16
+    (packed wire) a captured 2-step gen call then a 4-step gan call, f32 a
+    2-step gan call, each against K eager steps from the same state,
+    metrics and G, D (batch-norm statistics included), moments, counts and
+    the draws' generator bit for bit; the capture's seconds (its eager
+    warm-up step included), the memory the capture leaves reserved, steps/s
+    of a replayed call against the eager steps' and its busy share (replay
+    event time over wall), and the f32 call's kernel nodes (one replay's
+    kernel records)."""
+    from svcc23_fastsvc_tpu_torch.bin.common import deterministic_cudnn
+    from svcc23_fastsvc_tpu_torch.config import build_b02_task
+    from svcc23_fastsvc_tpu_torch.data.collate import B02Batcher
+    from svcc23_fastsvc_tpu_torch.data.wire import WirePacker, to_device
+    from svcc23_fastsvc_tpu_torch.train.graphs import StepGraphs
+    from svcc23_fastsvc_tpu_torch.train.loop import _stack
+
+    items = b02_dataset()
+    deterministic_cudnn()
+    for c in counters:
+        c.launches = 0
+    report = {}
+    try:
+        for dt_name, wire in (("bfloat16", "packed"), ("float32", "f32")):
+            cfg = {**B02_TRAIN_CONFIG, "compute_dtype": dt_name,
+                   "wire_format": wire}
+            pack = (WirePacker(hop_size=HOP) if wire == "packed"
+                    else (lambda b: b))
+            batcher = B02Batcher(items, batch_size=TB3, max_frames=TF3,
+                                 seed=5)
+            # bf16: a gen call at K = 2, then a gan call at 4; f32: a gan
+            # call at K = 2; each from the state the one before left, equal
+            # in both tasks
+            calls = ((B02_KS[0], "gen"), (B02_KS[1], "gan")) \
+                if dt_name == "bfloat16" else ((B02_KS[0], "gan"),)
+            eager = build_b02_task(cfg, device=dev, seed=7)
+            graphed = build_b02_task(cfg, device=dev, seed=7)
+            graphs = StepGraphs(graphed)
+            captured = []
+            # (1) each call against K eager steps from the same state
+            for K, phase in calls:
+                host = [batcher.sample_batch() for _ in range(K)]
+                stacked = pack(_stack(host))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = [getattr(eager, f"{phase}_step")(
+                    to_device(pack(b), dev)) for b in host]
+                torch.cuda.synchronize()
+                eager_s = (time.perf_counter() - t0) / K
+                # what the capture leaves reserved: the graph's pool
+                torch.cuda.empty_cache()
+                reserved0 = torch.cuda.memory_reserved()
+                t0 = time.perf_counter()
+                graph = graphs.stage(phase, stacked)
+                graphs._capture(graph)
+                torch.cuda.synchronize()
+                capture_s = time.perf_counter() - t0
+                torch.cuda.empty_cache()
+                pool_gib = (torch.cuda.memory_reserved()
+                            - reserved0) / 2 ** 30
+                got = graphs.replay(graph)
+                torch.cuda.synchronize()
+                row = {
+                    "metrics that differ": sum(
+                        not torch.equal(v, torch.stack([m[n] for m in want]))
+                        for n, v in got.items()),
+                    "state that differs": _b02_differing(eager, graphed),
+                    "capture_s (warm-up step included)": capture_s,
+                    "pool_gib (reserved after the capture)": pool_gib,
+                    "eager_s_per_step": eager_s,
+                }
+                require(all(torch.isfinite(v).all().item()
+                            for v in got.values()),
+                        f"B02 K = {K} {phase} {dt_name}: non-finite")
+                require(row["metrics that differ"] == 0
+                        and not any(row["state that differs"].values()),
+                        f"B02 K = {K} {phase} {dt_name}: the replay differs "
+                        f"from {K} eager steps: {row}")
+                report[f"{dt_name} K = {K} {phase}"] = row
+                captured.append((K, phase, graph, stacked, row))
+            # (2) the replayed calls as the trainer makes them (the states
+            # part from here on)
+            for K, phase, graph, stacked, row in captured:
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    graphs.replay(graphs.stage(phase, stacked))
+                torch.cuda.synchronize()
+                wall_s = (time.perf_counter() - t0) / 2
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                graph.graph.replay()
+                end.record()
+                end.synchronize()
+                replay_s = start.elapsed_time(end) / 1e3
+                nodes = None  # parsing ~10^5 records a step takes ~20 s
+                if dt_name == "float32":
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        graph.graph.replay()
+                        torch.cuda.synchronize()
+                    nodes = 0
+                    for e in prof.key_averages():
+                        dev_us = getattr(e, "self_device_time_total", None)
+                        if dev_us is None:
+                            dev_us = e.self_cuda_time_total
+                        if dev_us > 0 and e.cpu_time_total == 0:
+                            nodes += e.count
+                row.update({
+                    "steps_per_s K-step call": K / wall_s,
+                    "steps_per_s eager (K = 1)": 1 / row["eager_s_per_step"],
+                    "call_wall_s": wall_s,
+                    "replay_event_s": replay_s,
+                    "busy": replay_s / wall_s,
+                    "kernel nodes a call": nodes,
+                    "kernel nodes a step": nodes and nodes / K,
+                })
+                say(f"B02 {dt_name} ({wire} wire) K = {K} {phase} call "
+                    f"(B={TB3} x {TF3}): {row}")
+            del eager, graphed, graphs, graph, captured
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launches = {c.__name__: c.launches for c in counters}
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel was not launched in the B02 K-step calls: {launches}")
+    say(f"B02 K-step main path: launches counted at capture {launches}")
+    return launches, report
+
+
+# phase 27: the FastSVC step with the HiFiGAN discriminator at the JAX
+# model's from_config defaults (3 scales; periods 2, 3, 5, 7, 11)
+HIFIGAN_CONFIG = {**TRAIN_CONFIG,
+                  "discriminator_type":
+                      "HiFiGANMultiScaleMultiPeriodDiscriminator",
+                  "discriminator_params": {}}
+# (what it is, T, Cin, Cout, K) of its stride-1 convs on the window-conv
+# kernels at a gan_step's scale 0 (real | fake, 2 x 32 rows), and the
+# MelGAN discriminator's two that the wider gate took with them
+HIFIGAN_SHAPES = [
+    ("HiFiGAN MSD conv 0", 16000, 1, 128, 15),
+    ("HiFiGAN MSD conv 6", 16000 // 64, 1024, 1024, 5),
+    ("HiFiGAN MSD last", 16000 // 64, 1024, 1, 3),
+    ("MelGAN MSD conv 4", 16000 // 64, 512, 512, 5),
+    ("MelGAN MSD last", 16000 // 64, 512, 1, 3),
+]
+
+
+def hifigan_phase(dev, items, counters):
+    """Phase 27: (1) one gan_step of the recipe's generator with the
+    HiFiGAN MSD + MPD on the card against the CPU in f32 and f64 (phase 7's
+    rule), then two gan_steps from one state bit for bit, f32 and bf16;
+    (2) one bf16 and one f32 gan_step on the recipe's batch with the
+    launch counts set to 0 before; (3) #2-#4 at the discriminators' stride-1
+    convs against their plain versions, with their times, device times,
+    cuDNN's and the bound."""
+    from svcc23_fastsvc_tpu_torch.bin.common import deterministic_cudnn
+    from svcc23_fastsvc_tpu_torch.config import build_train_task
+    from svcc23_fastsvc_tpu_torch.data.collate import FastSVCBatcher
+    from svcc23_fastsvc_tpu_torch.data.wire import to_device
+    from svcc23_fastsvc_tpu_torch.ops.window_conv import (
+        fwd_plan,
+        wgrad_plan,
+        window_conv,
+        window_conv_dx,
+        window_conv_dx_plain,
+        window_conv_plain,
+        window_conv_wgrad,
+        window_conv_wgrad_plain,
+    )
+
+    deterministic_cudnn()
+    try:
+        held = train_vs_cpu(dev, items, what="HiFiGAN ",
+                            config=HIFIGAN_CONFIG, steps=("gan",))
+        for c in counters:
+            c.launches = 0
+        batch = to_device(FastSVCBatcher(
+            items, batch_size=TB, batch_length=16000, hop_size=HOP,
+            seed=4).sample_batch(), dev)
+        step_rows = {}
+        for dt_name in ("bfloat16", "float32"):
+            task = build_train_task({**HIFIGAN_CONFIG,
+                                     "compute_dtype": dt_name},
+                                    device=dev, seed=7)
+            before = [c.launches for c in counters]
+            m = task.gan_step(batch)
+            torch.cuda.synchronize()
+            require(all(torch.isfinite(v).item() for v in m.values()),
+                    f"HiFiGAN gan_step {dt_name}: non-finite {m}")
+            t0 = time.perf_counter()
+            for _ in range(2):
+                task.gan_step(batch)
+            torch.cuda.synchronize()
+            step_rows[dt_name] = {
+                "step_ms": (time.perf_counter() - t0) * 1e3 / 2,
+                "launches a step": [c.launches - b
+                                    for c, b in zip(counters, before)],
+                "losses": {k: float(v) for k, v in m.items()}}
+            del task
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launches = {c.__name__: c.launches for c in counters}
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel was not launched in the HiFiGAN gan_steps: {launches}")
+    say(f"HiFiGAN gan_step (B={TB} x 16000): {step_rows}; launches "
+        f"{launches}")
+
+    rows = []
+    kgen = torch.Generator(device=dev).manual_seed(27)
+    F = torch.nn.functional
+    tgrad = torch.nn.grad
+    B2 = 2 * TB
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for what, T, cin, cout, K in HIFIGAN_SHAPES:
+            x = torch.randn((B2, T, cin), generator=kgen, device=dev).to(dtype)
+            g = torch.randn((B2, T, cout), generator=kgen, device=dev).to(
+                dtype)
+            w = (torch.randn((K, cin, cout), generator=kgen, device=dev)
+                 / (K * cin) ** 0.5).to(dtype)
+            b = (0.1 * torch.randn((cout,), generator=kgen,
+                                   device=dev)).to(dtype)
+            xt, gt = (v.transpose(1, 2).contiguous() for v in (x, g))
+            wt = w.permute(2, 1, 0).contiguous()
+            pad = (K - 1) // 2
+            esize = x.element_size()
+            ops = 2 * B2 * T * K * cin * cout
+            shape = f"({B2},{T},{cin})->{cout} K={K}"
+            fwd_bytes = (x.numel() + w.numel() + b.numel()
+                         + B2 * T * cout) * esize
+            dx_bytes = (g.numel() + w.numel() + x.numel()) * esize
+            wg_bytes = (x.numel() + g.numel()) * esize + (w.numel() + cout) * 4
+            for (name, src, line, nbytes, fn, plain, lib, lib_name,
+                 variant) in (
+                ("window_conv", "window_conv.cu", 155, fwd_bytes,
+                 lambda: window_conv(x, w, b, 1, None),
+                 lambda: window_conv_plain(x, w, b, 1, None),
+                 lambda: F.conv1d(xt, wt, b, padding=pad),
+                 "F.conv1d", fwd_plan(dtype, B2, T, cin, cout)["variant"]),
+                ("window_conv_dx", "window_conv_grad.cu", 252, dx_bytes,
+                 lambda: window_conv_dx(g, w, 1),
+                 lambda: window_conv_dx_plain(g, w, 1),
+                 lambda: tgrad.conv1d_input(xt.shape, wt, gt, padding=pad),
+                 "torch.nn.grad.conv1d_input",
+                 fwd_plan(dtype, B2, T, cout, cin)["variant"]),
+                ("window_conv_wgrad", "window_conv_grad.cu", 203, wg_bytes,
+                 lambda: window_conv_wgrad(x, g, K, 1, None),
+                 lambda: window_conv_wgrad_plain(x, g, K, 1, None),
+                 lambda: tgrad.conv1d_weight(xt, wt.shape, gt, padding=pad),
+                 "torch.nn.grad.conv1d_weight",
+                 wgrad_plan(dtype, B2, T, K, cin, cout)["variant"]),
+            ):
+                got, want = fn(), plain()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                torch.cuda.synchronize()
+                err = 0.0
+                for a, c in zip(got, want):
+                    e = (a.float() - c.float()).abs().max().item()
+                    scale = c.float().abs().max().item()
+                    require(torch.isfinite(a).all().item(),
+                            f"{name} {dt} {what}: non-finite")
+                    require(e <= TOL_CONV[dtype] * scale,
+                            f"{name} {dt} {what}: max err {e} > "
+                            f"{TOL_CONV[dtype]} x {scale}")
+                    err = max(err, e)
+                b_ms, b_by = bound(nbytes, ops, dtype)
+                row = {
+                    "name": f"{name} {dt} {what} {shape}",
+                    "route": "cuda",
+                    "source": f"svcc23_fastsvc_tpu_torch/csrc/{src}",
+                    "replaces": f"svcc23_fastsvc_tpu/ops/"
+                                f"pallas_window_conv.py:{line}",
+                    "launches": launches[name],
+                    "max_abs_err": err,
+                    "ms": cuda_ms(fn, iters=10),
+                    "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                    "bound_ms": b_ms,
+                    "bound_by": b_by,
+                    "library_ms": cuda_ms(lib, iters=10),
+                    "library": lib_name,
+                    "variant": variant,
+                    "device_ms": queued_ms(fn, iters=10),
+                    "library_device_ms": queued_ms(lib, iters=10),
+                }
+                rows.append(row)
+                say(f"{row['name']}: max err {err:.3e}; {row['ms']:.4f} ms "
+                    f"(plain {row['plain_ms']:.4f}, library "
+                    f"{row['library_ms']:.4f}, bound {b_ms:.4f} by {b_by}); "
+                    f"{variant}, device {row['device_ms']:.4f} ms, library "
+                    f"device {row['library_device_ms']:.4f} ms")
+            del x, g, w, b, xt, gt, wt
+    return rows, launches, held
+
+
+# phase 28: Trainer.run with the warm-up fast-forward, dumps and a profile
+OPTIONS_CONFIG = {**TRAIN_CONFIG,
+                  "generator_train_start_steps": 4,
+                  "discriminator_train_start_steps": 4,
+                  "train_max_steps": 7, "log_interval_steps": 1,
+                  "eval_interval_steps": 7, "save_interval_steps": 100000,
+                  "eval_batches": 1, "num_save_intermediate_results": 2,
+                  "steps_per_call": 1}
+
+
+def trainer_options_phase(dev, items, counters):
+    """Phase 28: `Trainer.run` at full width, bf16 (packed wire) and f32,
+    with generator_train_start_steps 4 (the count jumps to 5 and two
+    gan_steps run), an eval and two intermediate dumps at step 7, and a
+    `profile_dir`: the calls, the step count and the optimizers' counts
+    (which do not jump), the checkpoint at step 7, the dump wavs (their
+    generated half that of the task's `predict`, finite) and pngs where
+    matplotlib is installed, and a trace file with kernel records."""
+    from scipy.io import wavfile
+
+    from svcc23_fastsvc_tpu_torch.bin.common import write_wav
+    from svcc23_fastsvc_tpu_torch.config import build_train_task
+    from svcc23_fastsvc_tpu_torch.data.collate import FastSVCBatcher
+    from svcc23_fastsvc_tpu_torch.data.wire import to_device
+    from svcc23_fastsvc_tpu_torch.train.loop import Trainer
+
+    from svcc23_fastsvc_tpu_torch.bin.common import deterministic_cudnn
+
+    for c in counters:
+        c.launches = 0
+    out = {}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_options_")
+    deterministic_cudnn()  # as the training CLI runs
+    try:
+        for dt_name, wire in (("bfloat16", "packed"), ("float32", "f32")):
+            outdir = os.path.join(workdir, dt_name)
+            cfg = {**OPTIONS_CONFIG, "compute_dtype": dt_name,
+                   "wire_format": wire,
+                   "profile_dir": os.path.join(outdir, "profile")}
+            task = build_train_task(cfg, device=dev, seed=7)
+
+            def dev_batcher():
+                return FastSVCBatcher(items, batch_size=TB,
+                                      batch_length=16000, hop_size=HOP,
+                                      seed=9)
+            trainer = Trainer(
+                task, FastSVCBatcher(items, batch_size=TB, batch_length=16000,
+                                     hop_size=HOP, seed=1),
+                config=cfg, outdir=outdir, dev_batcher=dev_batcher())
+            t0 = time.perf_counter()
+            trainer.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            require(trainer.call_sizes == [1, 1] and task.step == 7
+                    and (task.g_opt.count, task.d_opt.count) == (2, 2)
+                    and [h["step"] for h in trainer.history] == [6, 7]
+                    and all("discriminator_loss" in h
+                            for h in trainer.history),
+                    f"options {dt_name}: calls {trainer.call_sizes}, step "
+                    f"{task.step}, counts {task.g_opt.count} "
+                    f"{task.d_opt.count}, history {trainer.history}")
+            require(os.path.exists(os.path.join(
+                outdir, "checkpoint-7steps.pkl")), "no checkpoint at 7")
+            pred = os.path.join(outdir, "predictions", "step7")
+            files = sorted(os.listdir(pred)) if os.path.isdir(pred) else []
+            wavs = ["0_gen.wav", "0_ref.wav", "1_gen.wav", "1_ref.wav"]
+            require(set(wavs) <= set(files), f"dumps {dt_name}: {files}")
+            dev_b = dev_batcher()
+            dev_b.sample_batch()  # the eval's batch; the dump takes the next
+            y = task.predict(to_device(dev_b.sample_batch(), dev), seed=7)
+            require(torch.isfinite(y).all().item(),
+                    f"dump forward {dt_name}: non-finite")
+            lsb = []  # PCM16 steps between each dump and the forward's
+            for i in range(2):
+                tmp = os.path.join(workdir, "want.wav")
+                write_wav(tmp, y[i, :, 0].cpu().numpy(), SR)
+                lsb.append(int(np.abs(
+                    wavfile.read(os.path.join(pred, f"{i}_gen.wav"))[1]
+                    .astype(np.int64) - wavfile.read(tmp)[1]).max()))
+            require(max(lsb) <= 1, f"dumps {dt_name}: generated wavs "
+                                   f"{lsb} PCM steps from the forward's")
+            # named by the run's first step, after the fast-forward
+            trace = os.path.join(outdir, "profile", "trace-step5.json")
+            require(os.path.exists(trace), f"no trace file at {trace}")
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = sum(e.get("cat") == "kernel" for e in events)
+            require(kernels > 0, f"trace {dt_name}: no kernel records")
+            out[dt_name] = {
+                "run_s (profiled)": run_s, "calls": trainer.call_sizes,
+                "dump vs predict, max PCM steps": lsb,
+                "pngs": [f for f in files if f.endswith(".png")],
+                "trace_mib": os.path.getsize(trace) / 2 ** 20,
+                "trace kernel records": kernels,
+                "losses at 7": {k: v for k, v in trainer.history[-1].items()
+                                if k.endswith("_loss")}}
+            say(f"trainer options {dt_name} ({wire} wire): {out[dt_name]}")
+            del task, trainer
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = {c.__name__: c.launches for c in counters}
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel was not launched in the options run: {launches}")
+    say(f"trainer options main path: launches {launches}")
+    return launches
+
+
 def main():
     # 1. device
     require(torch.cuda.is_available(), "no CUDA device: chip_smoke.py runs "
@@ -3321,7 +3886,7 @@ def main():
         task.gan_step(tbatch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t_wall) * 1e3 / 3
-    per_kernel = device_ms(lambda: task.gan_step(tbatch))
+    per_kernel = device_ms(lambda: task.gan_step(tbatch), host_ops=False)
     busy = sum(per_kernel.values())
     say(f"profile gan_step bf16 (B={TB} x 16000): wall {wall_ms:.3f} ms/step, "
         f"kernels {busy:.3f} ms, busy {busy / wall_ms:.1%}")
@@ -3435,11 +4000,44 @@ def main():
     b02_fe_launches = b02_front_end_phase(dev, phases)
     say(f"phase 24 (B02 front end -> conversion): "
         f"{time.perf_counter() - t:.1f} s")
+
+    train_counters = (window_conv, window_conv_dx, window_conv_wgrad,
+                      sine_excitation)
+    # 25. the recipe's loader_threads: 4, the native batch producer
+    t = time.perf_counter()
+    loader_launches = loader_phase(dev, items, train_counters)
+    phases["loader_s"] = time.perf_counter() - t
+    say(f"phase 25 (the recipe's loader at K = {KSTEPS}): "
+        f"{phases['loader_s']:.1f} s")
+
+    # 26. B02 training at K steps a call, captured
+    t = time.perf_counter()
+    b02_k_launches, _ = b02_k_step_phase(
+        dev, (window_conv, window_conv_dx, window_conv_wgrad))
+    phases["b02_k_steps_s"] = time.perf_counter() - t
+    say(f"phase 26 (B02 K-step graphs): {phases['b02_k_steps_s']:.1f} s")
+
+    # 27. the HiFiGAN discriminator
+    t = time.perf_counter()
+    hifi_rows, hifi_launches, _ = hifigan_phase(dev, items, train_counters)
+    kernels += hifi_rows
+    phases["hifigan_s"] = time.perf_counter() - t
+    say(f"phase 27 (HiFiGAN gan_step): {phases['hifigan_s']:.1f} s")
+
+    # 28. Trainer.run: warm-up fast-forward, dumps, profile_dir
+    t = time.perf_counter()
+    options_launches = trainer_options_phase(dev, items, train_counters)
+    phases["trainer_options_s"] = time.perf_counter() - t
+    say(f"phase 28 (trainer options): {phases['trainer_options_s']:.1f} s")
     paths = {"decode": launches, "train": train_launches, **voc_launches,
              "decode_chain": down_launches, **fused_paths,
              "train_k_steps": k_launches, **b02_paths,
              "front_end_decode": fe_launches,
-             "b02_front_end_conversion": b02_fe_launches}
+             "b02_front_end_conversion": b02_fe_launches,
+             "train_loader_k8": loader_launches,
+             "b02_train_k_steps": b02_k_launches,
+             "train_hifigan": hifi_launches,
+             "train_options": options_launches}
     for row in kernels:
         name = row["name"].split(" ")[0]
         row["launches_by_path"] = {p: n.get(name, 0) for p, n in paths.items()}

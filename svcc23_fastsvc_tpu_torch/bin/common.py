@@ -101,3 +101,15 @@ def resample(audio: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
 def utt_speaker(utt_id: str) -> str:
     """Speaker id convention: the prefix before the first underscore."""
     return utt_id.split("_")[0]
+
+
+def summary_writer(logdir: str):
+    """A tensorboardX SummaryWriter on `logdir`, or None with a warning
+    where tensorboardX is not installed (scalars then go to the log
+    only)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        logging.warning("tensorboardX unavailable; scalar logging disabled")
+        return None
+    return SummaryWriter(logdir)

@@ -8,8 +8,10 @@ the experiment dir, and runs the step loop (gen_step up to
 `discriminator_train_start_steps`, gan_step after) with log/eval/save
 intervals and `--resume` (the latest checkpoint of the outdir, or a given
 .pkl). Checkpoints are in the reference `.pkl` layout, which the port's
-`bin/decode_b02.py` decodes as they are. SIGTERM checkpoints at the next
-step boundary and exits 75.
+`bin/decode_b02.py` decodes as they are. The config's `steps_per_call`
+runs K steps a call (one captured CUDA graph on the card), and its
+scalars go to a tensorboardX writer in the outdir where tensorboardX is
+installed. SIGTERM checkpoints at the next step boundary and exits 75.
 
     python -m svcc23_fastsvc_tpu_torch.bin.train_b02 \
         --train-dumpdir dump/train --dev-dumpdir dump/dev --outdir exp \
@@ -28,7 +30,12 @@ from ..config import build_b02_task, dump_config, load_config
 from ..data.collate import B02Batcher
 from ..data.dataset import B02Dataset
 from ..train.loop import Trainer
-from .common import deterministic_cudnn, disable_tf32, setup_logging
+from .common import (
+    deterministic_cudnn,
+    disable_tf32,
+    setup_logging,
+    summary_writer,
+)
 
 
 def main(argv=None):
@@ -67,12 +74,17 @@ def main(argv=None):
     train_batcher = batcher(args.train_dumpdir, args.seed)
     dev_batcher = (batcher(args.dev_dumpdir, args.seed + 1)
                    if args.dev_dumpdir else None)
+    writer = summary_writer(args.outdir)
     trainer = Trainer(task, train_batcher, config=cfg, outdir=args.outdir,
-                      dev_batcher=dev_batcher)
+                      dev_batcher=dev_batcher, writer=writer)
     if args.resume:
         trainer.resume(None if args.resume == "auto" else args.resume)
     trainer.install_preemption_handler()
-    trainer.run()
+    try:
+        trainer.run()
+    finally:
+        if writer is not None:
+            writer.close()
     if trainer.preempted:
         # EX_TEMPFAIL: a graceful preemption with a resumable checkpoint
         logging.info("preempted; checkpoint saved - exiting 75")

@@ -94,6 +94,35 @@ def melgan_msd_state_dict_from_jax(params) -> dict:
     return sd
 
 
+def _conv2d(sd, prefix, p):
+    """An HWIO conv2d (plain or weight-normed) as torch's (O, I, kh, kw)."""
+    if "v" in p:
+        sd[f"{prefix}.weight_g"] = _t(np.asarray(p["g"]).reshape(-1, 1, 1, 1))
+        sd[f"{prefix}.weight_v"] = _t(np.asarray(p["v"]).transpose(3, 2, 0, 1))
+    else:
+        sd[f"{prefix}.weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
+    if "b" in p:
+        sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def hifigan_msd_mpd_state_dict_from_jax(params) -> dict:
+    """JAX HiFiGANMultiScaleMultiPeriodDiscriminator params -> the port's
+    `state_dict`: a scale discriminator's convs at `layers.{j}.0` but the
+    last (`last_layer`), a period discriminator's at `convs.{j}.0` and
+    `output_conv`."""
+    sd = {}
+    for i, disc in enumerate(params["msd"]):
+        *layers, last = disc["layers"]
+        for j, p in enumerate(layers):
+            _conv(sd, f"msd.discriminators.{i}.layers.{j}.0", p)
+        _conv(sd, f"msd.discriminators.{i}.last_layer", last)
+    for i, disc in enumerate(params["mpd"]):
+        for j, p in enumerate(disc["convs"]):
+            _conv2d(sd, f"mpd.discriminators.{i}.convs.{j}.0", p)
+        _conv2d(sd, f"mpd.discriminators.{i}.output_conv", disc["output_conv"])
+    return sd
+
+
 def _time_conv2d(sd, prefix, p):
     """A WIO (2s+1, 1, 1) time kernel as the reference's Conv2d weight
     (1, 1, 1, 2s+1)."""

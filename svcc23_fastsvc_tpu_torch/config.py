@@ -93,16 +93,22 @@ def build_generator(cfg: dict, *, device=None, generator=None, **kw):
 
 
 def build_discriminator(cfg: dict, *, device=None, generator=None):
-    """MelGANMultiScaleDiscriminator (FastSVC) or MultiSubFreqDiscriminator
-    (B02) from `discriminator_type` and `discriminator_params`."""
-    from .models.fastsvc import MelGANMultiScaleDiscriminator
+    """MelGANMultiScaleDiscriminator or HiFiGANMultiScaleMultiPeriod
+    Discriminator (FastSVC), or MultiSubFreqDiscriminator (B02), from
+    `discriminator_type` and `discriminator_params`."""
+    from .models.fastsvc import (
+        HiFiGANMultiScaleMultiPeriodDiscriminator,
+        MelGANMultiScaleDiscriminator,
+    )
     from .models.tacotron2 import MultiSubFreqDiscriminator
 
     dtype = cfg.get("discriminator_type", "MelGANMultiScaleDiscriminator")
     classes = {"MelGANMultiScaleDiscriminator": MelGANMultiScaleDiscriminator,
+               "HiFiGANMultiScaleMultiPeriodDiscriminator":
+                   HiFiGANMultiScaleMultiPeriodDiscriminator,
                "MultiSubFreqDiscriminator": MultiSubFreqDiscriminator}
     if dtype not in classes:
-        raise KeyError(f"discriminator_type {dtype!r} is not ported yet")
+        raise KeyError(f"unknown discriminator_type {dtype!r}")
     return classes[dtype].from_config(
         cfg.get("discriminator_params", {}), device=device,
         generator=generator)

@@ -7,7 +7,9 @@ utterances drawn with replacement and a frame-aligned random window of
 `batch_length` samples from each, as one batch dict of static shapes.
 The sine excitation is not made here: the train step makes it on the
 device from the window's F0. Crops come from a
-seeded numpy Generator, so a run is reproducible.
+seeded numpy Generator, so a run is reproducible; the windows of a batch
+are copied by the native assembler's threads (`data/native_batch.py::
+assemble_batch`), as the JAX batcher copies them.
 
 Items are the port's `FastSVCDataset` layout: (utt_id, wave (T,), f0 (T',),
 ppg (T', C), lft (T,), spk_emb (1, S)).
@@ -24,6 +26,8 @@ import logging
 from typing import Dict, Iterator
 
 import numpy as np
+
+from .native_batch import assemble_batch
 
 
 class FastSVCBatcher:
@@ -93,24 +97,12 @@ class FastSVCBatcher:
         if self._packed is None:
             self._pack()
         p = self._packed
-        B, F, L = self.batch_size, self.batch_frames, self.batch_length
+        B, F = self.batch_size, self.batch_frames
         rows = self.rng.integers(0, p["audio"].shape[0], size=B)
         max_start = p["n_frames"][rows] - F
         start = (self.rng.random(B) * (max_start - self.acw)).astype(
             np.int64) + self.acw
-        s0 = start * self.hop_size
-        out = {
-            "audio": np.empty((B, L, 1), np.float32),
-            "f0": np.empty((B, F, 1), np.float32),
-            "ppg": np.empty((B, F, p["ppg"].shape[-1]), np.float32),
-            "lft": np.empty((B, L, 1), np.float32),
-        }
-        for i in range(B):
-            r, f0s, a0 = rows[i], start[i], s0[i]
-            out["audio"][i, :, 0] = p["audio"][r, a0:a0 + L]
-            out["f0"][i, :, 0] = p["f0"][r, f0s:f0s + F]
-            out["ppg"][i] = p["ppg"][r, f0s:f0s + F]
-            out["lft"][i, :, 0] = p["lft"][r, a0:a0 + L]
+        out = assemble_batch(p, rows, start, F, self.hop_size)
         if self.use_spk_emb:
             out["spk_emb"] = p["spk_emb"][rows]
         return out

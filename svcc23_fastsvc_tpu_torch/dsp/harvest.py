@@ -2,58 +2,25 @@
 
 Counterpart of `svcc23_fastsvc_tpu/dsp/harvest.py`, over the same source,
 `native/harvest.cpp`: serial heuristic DSP that stays on the host. The
-source is compiled with the host `g++` and the flags of `native/Makefile`
-into `svcc23_fastsvc_tpu_torch/_build/` at first use, under a name that
-carries a hash of the source, the flags and the target that
-`-march=native` resolves to, so that a library built for one CPU is never
-loaded on another. Nothing is written into `native/`. When the library
-cannot be built or loaded this raises: there is no fallback to another
-estimator.
+source is compiled with the host `g++` into `svcc23_fastsvc_tpu_torch/
+_build/` at first use (`utils/host_build.py`). When the library cannot be
+built or loaded this raises: there is no fallback to another estimator.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 import threading
 
 import numpy as np
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(_PKG_DIR), "native", "harvest.cpp")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
-BUILD_TIMEOUT_S = 120
+from ..utils import host_build
+
+SOURCE = os.path.join(host_build.NATIVE_DIR, "harvest.cpp")
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
-
-
-def _cxx() -> str:
-    cxx = os.environ.get("CXX") or shutil.which("g++")
-    if not cxx:
-        raise RuntimeError("Harvest needs a C++ compiler: no g++ on PATH "
-                           "(or set CXX)")
-    return cxx
-
-
-def library_path(cxx: str) -> str:
-    """Path of the library for the current source, flags and host CPU."""
-    # the target -march=native stands for on this host, as g++ hands it
-    # on to cc1plus
-    probe = subprocess.run(
-        [cxx, "-march=native", "-E", "-v", "-x", "c++", os.devnull],
-        capture_output=True, text=True, timeout=60)
-    target = [ln for ln in probe.stderr.splitlines() if "-march=" in ln]
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update("\n".join(target).encode())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libharvest_{h.hexdigest()[:16]}.so")
 
 
 def _load():
@@ -61,26 +28,7 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        if not os.path.isfile(SOURCE):
-            raise RuntimeError(f"Harvest source missing: {SOURCE}")
-        cxx = _cxx()
-        path = library_path(cxx)
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                out = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
-                                     capture_output=True, text=True,
-                                     timeout=BUILD_TIMEOUT_S)
-                if out.returncode != 0:
-                    raise RuntimeError(
-                        f"building Harvest failed:\n{out.stderr[-3000:]}")
-                os.replace(tmp, path)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        lib = ctypes.CDLL(path)
+        lib = host_build.load(SOURCE, "harvest")
         lib.harvest_f0.restype = ctypes.c_int
         lib.harvest_f0.argtypes = [
             ctypes.POINTER(ctypes.c_double),  # x

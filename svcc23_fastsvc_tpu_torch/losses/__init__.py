@@ -2,6 +2,7 @@
 
 from .adversarial import (  # noqa: F401
     discriminator_adversarial_loss,
+    feature_matching_loss,
     generator_adversarial_loss,
 )
 from .masked import masked_mse_loss  # noqa: F401

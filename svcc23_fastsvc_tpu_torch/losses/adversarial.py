@@ -53,3 +53,12 @@ def discriminator_adversarial_loss(outputs_hat, outputs, *,
         real_loss = real_loss / len(real)
         fake_loss = fake_loss / len(fake)
     return real_loss, fake_loss
+
+
+def feature_matching_loss(fmaps_hat, fmaps):
+    """L1 over discriminator feature maps (the HiFiGAN auxiliary loss),
+    averaged over the maps. The train steps do not use it, as in JAX."""
+    total = 0.0
+    for f_hat, f in zip(fmaps_hat, fmaps):
+        total = total + torch.mean(torch.abs(f_hat - f))
+    return total / max(len(fmaps), 1)

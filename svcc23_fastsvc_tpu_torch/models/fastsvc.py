@@ -1,7 +1,9 @@
-"""FastSVC generator (paper Fig. 3-4) and the MelGAN multi-scale discriminator.
+"""FastSVC generator (paper Fig. 3-4), the MelGAN multi-scale discriminator
+and the HiFiGAN multi-scale + multi-period discriminator.
 
-Counterpart of `svcc23_fastsvc_tpu/models/fastsvc.py::FastSVCGenerator` and
-`MelGANMultiScaleDiscriminator` as `nn.Module`s. Public tensors are
+Counterpart of `svcc23_fastsvc_tpu/models/fastsvc.py::FastSVCGenerator`,
+`MelGANMultiScaleDiscriminator` and `HiFiGANMultiScaleMultiPeriod
+Discriminator` as `nn.Module`s. Public tensors are
 channels-last (B, T, C), as in the JAX package. Parameters keep the
 reference torch module tree and state-dict keys (the ones
 `svcc23_fastsvc_tpu/compat/torch_weights.py::convert_fastsvc_generator`
@@ -34,6 +36,7 @@ from torch import nn
 from ..ops.conv import (
     avg_pool1d,
     conv1d,
+    conv2d,
     conv_weight,
     instance_norm,
     l2_normalize,
@@ -327,10 +330,16 @@ class FastSVCGenerator(nn.Module):
                 m.fold_weight_norm_()
         return self
 
-    def forward(self, ppg, sine, lft, spk_emb=None, *, fuse_film: bool = False):
+    def forward(self, ppg, sine, lft, spk_emb=None, *, fuse_film: bool = False,
+                f32_out: bool = False):
         """ppg (B, T', C_in), sine/lft (B, T, 1), spk_emb (B, S) or None
         -> (B, T, out_channels). `fuse_film` evaluates the FiLM output convs
-        fused (_film_pair), as inference does; numerics are the same."""
+        fused (_film_pair), as inference does; numerics are the same.
+        `f32_out` returns the last conv's f32 sums, unrounded, for a
+        bf16 forward whose output feeds f32 losses: XLA keeps them so in
+        the JAX step (its `.astype(f32)` of the bf16 output is elided), and
+        a rounded output roughly triples the bf16 gradient's distance from
+        f32 through the log-STFT loss."""
         lft_taps, h = [], lft
         for blk in self.downsampling_lft:
             h = blk(h)
@@ -351,6 +360,12 @@ class FastSVCGenerator(nn.Module):
                 film = self.film_sine[d](sine_taps[d])
                 lpair = self.film_lft[d](lft_taps[d])
             x = blk(x, film, lpair, spk_emb)
+        if f32_out and x.dtype in (torch.bfloat16, torch.float16):
+            # bf16 products are exact in f32: the same sums, not rounded
+            last = self.conv_last
+            return conv1d(x.float(), last.wio().float(),
+                          None if last.bias is None else last.bias.float(),
+                          padding=0)
         return self.conv_last(x)
 
     def inference(self, ppg, f0, lft, signal_generator, spk_emb=None,
@@ -481,3 +496,210 @@ class MelGANMultiScaleDiscriminator(nn.Module):
             outs.append(d(x))
             x = avg_pool1d(x, *self.pooling, count_include_pad=False)
         return outs
+
+
+# ---------------------------------------------------------------------------
+# HiFiGAN discriminators (reference fastsvc.py:631-1143)
+# ---------------------------------------------------------------------------
+
+
+class Conv2d(nn.Module):
+    """Conv2d parameters in torch layout (O, I, kh, kw), optionally
+    weight-normed (`weight_g` (O, 1, 1, 1), `weight_v`), initialised as
+    torch.nn.Conv2d (uniform, bound 1/sqrt(kh*kw*C_in))."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, *,
+                 weight_norm=True, device=None, generator=None):
+        super().__init__()
+        kh, kw = kernel_size
+        bound = 1.0 / math.sqrt(kh * kw * in_channels)
+        w = _uniform((out_channels, in_channels, kh, kw), bound, device,
+                     generator)
+        if weight_norm:
+            self.weight_g = nn.Parameter(
+                torch.sqrt(torch.sum(w * w, dim=(1, 2, 3), keepdim=True)))
+            self.weight_v = nn.Parameter(w)
+        else:
+            self.weight = nn.Parameter(w)
+        self.bias = nn.Parameter(_uniform((out_channels,), bound, device,
+                                          generator))
+
+    def hwio(self):
+        """Effective weight as an HWIO (kh, kw, C_in, C_out) view."""
+        if "weight" in self._parameters:
+            return self.weight.permute(2, 3, 1, 0)
+        return conv_weight({"v": self.weight_v.permute(2, 3, 1, 0),
+                            "g": self.weight_g.reshape(-1)})
+
+    def forward(self, x, *, stride=1, padding=0):
+        """NHWC x -> NHWC, through `ops.conv.conv2d` (cuDNN on the card)."""
+        return conv2d(x, self.hwio(), self.bias, stride=stride,
+                      padding=padding)
+
+
+class HiFiGANPeriodDiscriminator(nn.Module):
+    """HiFiGAN period discriminator (reference fastsvc.py:631-759): the
+    signal reflect-padded to a multiple of `period`, folded to (T/P, P) and
+    scored by (k0, 1) convs strided along T, then a (k1 - 1, 1) output
+    conv. Weight-normed by default. Keys: `convs.{j}.0`, `output_conv`."""
+
+    def __init__(self, in_channels=1, out_channels=1, period=3,
+                 kernel_sizes=(5, 3), channels=32,
+                 downsample_scales=(3, 3, 3, 3, 1),
+                 max_downsample_channels=1024, negative_slope=0.1,
+                 use_weight_norm=True, *, device=None, generator=None):
+        super().__init__()
+        k0, k1 = kernel_sizes
+        kw = dict(weight_norm=use_weight_norm, device=device,
+                  generator=generator)
+        self.period, self.kernel_sizes = period, (k0, k1)
+        self.negative_slope = negative_slope
+        self.strides = tuple(downsample_scales)
+        convs, in_chs, out_chs = [], in_channels, channels
+        for _ in downsample_scales:
+            # the reference's (Conv2d, LeakyReLU) Sequential
+            convs.append(_placeholders(2, {0: Conv2d(in_chs, out_chs,
+                                                     (k0, 1), **kw)}))
+            in_chs = out_chs
+            out_chs = min(out_chs * 4, max_downsample_channels)
+        self.convs = nn.ModuleList(convs)
+        self.output_conv = Conv2d(in_chs, out_channels, (k1 - 1, 1), **kw)
+
+    def forward(self, x, return_fmaps: bool = False):
+        """x (B, T, C) -> logits (B, N) [, the layers' activations]."""
+        B, T, C = x.shape
+        if T % self.period:
+            x = reflect_pad1d(x, (0, self.period - T % self.period))
+            T = x.shape[1]
+        x = x.reshape(B, T // self.period, self.period, C)
+        k0, k1 = self.kernel_sizes
+        fmaps = []
+        for (conv, _), s in zip(self.convs, self.strides):
+            x = leaky_relu(conv(x, stride=(s, 1),
+                                padding=((k0 - 1) // 2, 0)),
+                           self.negative_slope)
+            fmaps.append(x)
+        out = self.output_conv(x, padding=((k1 - 1) // 2, 0)).reshape(B, -1)
+        return (out, fmaps) if return_fmaps else out
+
+
+class HiFiGANScaleDiscriminator(nn.Module):
+    """HiFiGAN scale discriminator (reference fastsvc.py:818-975): a K0
+    conv, grouped strided K1 convs, a K2 conv and a K3 output conv, all
+    zero "same" padded. The reference's weight norm tests
+    `isinstance(m, nn.Conv2d)` on Conv1d layers and never applies, so these
+    convs are plain, as in the JAX model. Keys: `layers.{j}.0`,
+    `last_layer`."""
+
+    def __init__(self, in_channels=1, out_channels=1,
+                 kernel_sizes=(15, 41, 5, 3), channels=128,
+                 max_downsample_channels=1024, max_groups=16,
+                 downsample_scales=(2, 2, 4, 4, 1), negative_slope=0.1, *,
+                 device=None, generator=None):
+        super().__init__()
+        k = kernel_sizes
+        # (K, C_in, C_out, stride, groups) of each conv, the JAX model's
+        defs = [(k[0], in_channels, channels, 1, 1)]
+        in_chs = out_chs = channels
+        groups = 4
+        for s in downsample_scales:
+            defs.append((k[1], in_chs, out_chs, s, groups))
+            in_chs = out_chs
+            out_chs = min(in_chs * 2, max_downsample_channels)
+            groups = min(groups * 4, max_groups)
+        out_chs = min(in_chs * 2, max_downsample_channels)
+        defs.append((k[2], in_chs, out_chs, 1, 1))
+        defs.append((k[3], out_chs, out_channels, 1, 1))
+        self.specs = [(kk, s) for kk, _, _, s, _ in defs]
+        self.negative_slope = negative_slope
+
+        def conv(kk, cin, cout, s, g):
+            return Conv1d(cin, cout, kk, groups=g, weight_norm=False,
+                          device=device, generator=generator)
+
+        self.layers = nn.ModuleList(
+            _placeholders(2, {0: conv(*d)}) for d in defs[:-1])
+        self.last_layer = conv(*defs[-1])
+
+    def forward(self, x, return_fmaps: bool = False):
+        """x (B, T, C) -> logits (B, T', out_channels) [, activations]."""
+        fmaps = []
+        for (conv, _), (kk, s) in zip(self.layers, self.specs):
+            x = leaky_relu(conv(x, stride=s, padding=(kk - 1) // 2),
+                           self.negative_slope)
+            fmaps.append(x)
+        kk, _ = self.specs[-1]
+        x = self.last_layer(x, padding=(kk - 1) // 2)
+        return (x, fmaps) if return_fmaps else x
+
+
+def _sub_params(params: dict, *, keep_weight_norm: bool) -> dict:
+    """A sub-discriminator's keyword arguments from the reference config:
+    the activation's slope kept, the options the models have no use for
+    dropped (as the JAX model's `_scale_sub` / `_period_sub` drop them)."""
+    p = dict(params)
+    act = p.pop("nonlinear_activation_params", {})
+    for key in ("bias", "nonlinear_activation", "use_spectral_norm"):
+        p.pop(key, None)
+    if not keep_weight_norm:
+        p.pop("use_weight_norm", None)
+    for key in ("kernel_sizes", "downsample_scales"):
+        if key in p:
+            p[key] = tuple(p[key])
+    p["negative_slope"] = act.get("negative_slope", 0.1)
+    return p
+
+
+class HiFiGANMultiScaleMultiPeriodDiscriminator(nn.Module):
+    """HiFiGAN MSD + MPD (reference fastsvc.py:1055-1143): scale
+    discriminators on the signal and its average-pooled versions
+    (AvgPool1d with count_include_pad, between scales), then one period
+    discriminator per period. Output: a flat list of logits, MSD first
+    (with `return_fmaps`, also the flat list of every activation)."""
+
+    def __init__(self, scales=3, pooling_kernel=4, pooling_stride=2,
+                 pooling_padding=2, periods=(2, 3, 5, 7, 11),
+                 scale_params=None, period_params=None, *, device=None,
+                 generator=None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.pooling = (pooling_kernel, pooling_stride, pooling_padding)
+        self.msd = nn.Module()
+        self.msd.discriminators = nn.ModuleList(
+            HiFiGANScaleDiscriminator(**_sub_params(
+                scale_params or {}, keep_weight_norm=False), **kw)
+            for _ in range(scales))
+        self.mpd = nn.Module()
+        self.mpd.discriminators = nn.ModuleList(
+            HiFiGANPeriodDiscriminator(period=p, **_sub_params(
+                period_params or {}, keep_weight_norm=True), **kw)
+            for p in periods)
+
+    @classmethod
+    def from_config(cls, params: dict, **kw):
+        """Build from the recipe's `discriminator_params`, with the JAX
+        model's `from_config` defaults."""
+        pool = params.get("scale_downsample_pooling_params", {})
+        return cls(
+            scales=params.get("scales", 3),
+            pooling_kernel=pool.get("kernel_size", 4),
+            pooling_stride=pool.get("stride", 2),
+            pooling_padding=pool.get("padding", 2),
+            periods=tuple(params.get("periods", (2, 3, 5, 7, 11))),
+            scale_params=params.get("scale_discriminator_params", {}),
+            period_params=params.get("period_discriminator_params", {}),
+            **kw)
+
+    def forward(self, x, return_fmaps: bool = False):
+        outs, fmaps = [], []
+        h = x
+        for d in self.msd.discriminators:
+            out, f = d(h, return_fmaps=True)
+            outs.append(out)
+            fmaps.extend(f)
+            h = avg_pool1d(h, *self.pooling)
+        for d in self.mpd.discriminators:
+            out, f = d(x, return_fmaps=True)
+            outs.append(out)
+            fmaps.extend(f)
+        return (outs, fmaps) if return_fmaps else outs

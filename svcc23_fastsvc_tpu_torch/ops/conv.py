@@ -19,7 +19,7 @@ from .window_conv import WindowConv1d, window_conv
 # fused FiLM conv's 2 x 192 channels. Wider convs (the MelGAN
 # discriminator's 512-channel layers) go to cuDNN, as the JAX package sends
 # them to XLA's conv (its window-conv gate is 128 channels).
-WINDOW_CONV_MAX_CHANNELS = 384
+WINDOW_CONV_MAX_CHANNELS = 1024
 
 # The fused-conv lowering (ops/fused_conv.py, kernels #5 and #6), switched
 # as the JAX package switches its `pallas_conv1d`: "0" off (the default),

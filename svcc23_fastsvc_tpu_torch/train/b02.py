@@ -26,6 +26,13 @@ as 0-d device tensors. A step takes its draws from an explicit `draws`
 argument (see `draw`), which the tests fill with JAX's, or from that
 generator.
 
+`multi_step` runs K steps of one phase in a call, the counterpart of JAX
+`make_multi_step` (a `lax.scan` there), on the pattern of
+`train.gan.FastSVCTrainTask`: its body, `run_steps`, reads the
+optimizers' per-step scalars from a device table and draws its masks and
+window starts from the task's generator on the device, so
+`train.graphs.StepGraphs` captures it as one CUDA graph.
+
 bf16 follows the JAX package's `_cast`: parameters, optimizer state and
 losses stay f32, the generator's parameters and the f32 inputs are cast
 to `compute_dtype`, and the batch-norm statistics stay f32 (they are
@@ -38,6 +45,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, ClassVar
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -148,8 +156,12 @@ class B02TrainTask:
         return gen_loss, metrics, bn
 
     @staticmethod
-    def _update(module, opt, loss):
-        opt.step(torch.autograd.grad(loss, list(module.parameters())))
+    def _update(module, opt, loss, coef=None):
+        grads = torch.autograd.grad(loss, list(module.parameters()))
+        if coef is None:
+            opt.step(grads)
+        else:
+            opt.step(grads, coef)
 
     @staticmethod
     def _detach(metrics):
@@ -157,22 +169,17 @@ class B02TrainTask:
 
     # -- steps -----------------------------------------------------------
 
-    def gen_step(self, batch: dict, draws: dict = None) -> dict:
-        """Phase A: a generator-only update."""
+    def _gen(self, batch, draws, g_coef=None):
         draws = draws or self.draw("gen", batch)
         loss, metrics, bn = self._gen_loss(batch, draws, with_adv=False)
-        self._update(self.generator, self.g_opt, loss)
+        self._update(self.generator, self.g_opt, loss, g_coef)
         self.generator.set_bn_state(bn)
-        self.step += 1
         return self._detach(metrics)
 
-    def gan_step(self, batch: dict, draws: dict = None) -> dict:
-        """Phase B: a generator update with the (detached) adversarial term
-        logged, then the updated G's train-mode forward (the batch norms'
-        second update) and a discriminator update on it."""
+    def _gan(self, batch, draws, g_coef=None, d_coef=None):
         draws = draws or self.draw("gan", batch)
         loss, metrics, bn = self._gen_loss(batch, draws, with_adv=True)
-        self._update(self.generator, self.g_opt, loss)
+        self._update(self.generator, self.g_opt, loss, g_coef)
         self.generator.set_bn_state(bn)
         # the reference makes pred again with the UPDATED G in train mode
         # (train_b02.py:225-233), advancing the running statistics again
@@ -185,11 +192,70 @@ class B02TrainTask:
         p_fake = self.discriminator(pred, lengths, starts=draws["d_fake"])
         real, fake = discriminator_adversarial_loss(
             p_fake, p_real, loss_type=self.adv_loss_type)
-        self._update(self.discriminator, self.d_opt, real + fake)
+        self._update(self.discriminator, self.d_opt, real + fake, d_coef)
         metrics.update(real_loss=real, fake_loss=fake,
                        discriminator_loss=real + fake)
-        self.step += 1
         return self._detach(metrics)
+
+    def gen_step(self, batch: dict, draws: dict = None) -> dict:
+        """Phase A: a generator-only update."""
+        metrics = self._gen(batch, draws)
+        self.step += 1
+        return metrics
+
+    def gan_step(self, batch: dict, draws: dict = None) -> dict:
+        """Phase B: a generator update with the (detached) adversarial term
+        logged, then the updated G's train-mode forward (the batch norms'
+        second update) and a discriminator update on it."""
+        metrics = self._gan(batch, draws)
+        self.step += 1
+        return metrics
+
+    # -- K steps a call ----------------------------------------------------
+
+    def coefficient_table(self, k: int) -> np.ndarray:
+        """(2, k, 4) f32: G's and D's `RefRAdam.coefficients` for the next
+        k steps (D's unused by a gen call)."""
+        return np.stack([self.g_opt.coefficients(k),
+                         self.d_opt.coefficients(k)])
+
+    def run_steps(self, phase: str, batches: dict, coefs, draws=None) -> dict:
+        """k steps of `phase` ("gen" or "gan") on `batches` stacked on a
+        leading k axis, with the optimizers' scalars from `coefs` (a device
+        tensor of `coefficient_table(k)`) and each step's draws from
+        `draws[i]` (a list of k `draw` dicts) or from the task's generator
+        on the device. Metrics come back stacked, (k,) each. Nothing on the
+        host changes and nothing waits on the device, so `train.graphs`
+        captures it; `advance` counts the steps."""
+        k = coefs.shape[1]
+        rows = []
+        for i in range(k):
+            batch = {name: v[i] for name, v in batches.items()}
+            d = None if draws is None else draws[i]
+            if phase == "gen":
+                rows.append(self._gen(batch, d, coefs[0, i]))
+            else:
+                rows.append(self._gan(batch, d, coefs[0, i], coefs[1, i]))
+        return {name: torch.stack([r[name] for r in rows])
+                for name in rows[0]}
+
+    def advance(self, phase: str, k: int):
+        """Count k steps of `phase` run by `run_steps`."""
+        self.step += k
+        self.g_opt.advance(k)
+        if phase == "gan":
+            self.d_opt.advance(k)
+
+    def multi_step(self, phase: str, batches: dict, draws=None) -> dict:
+        """k steps of `phase` in one call, eagerly: the counterpart of JAX
+        `make_multi_step(task.{phase}_step)`. `batches` holds device tensors
+        stacked on a leading k axis; the metrics are (k,) device tensors.
+        The same bits as k calls of `{phase}_step`."""
+        k = next(iter(batches.values())).shape[0]
+        coefs = torch.from_numpy(self.coefficient_table(k)).to(self.device)
+        metrics = self.run_steps(phase, batches, coefs, draws)
+        self.advance(phase, k)
+        return metrics
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:

@@ -47,6 +47,14 @@ def _wide(t):
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
+def _tree(fn, outs):
+    """`fn` on every tensor of a discriminator's output: MelGAN's list of
+    per-scale lists, HiFiGAN's flat list of logits."""
+    if isinstance(outs, torch.Tensor):
+        return fn(outs)
+    return [_tree(fn, o) for o in outs]
+
+
 @dataclass
 class FastSVCTrainTask:
     generator: nn.Module
@@ -104,7 +112,7 @@ class FastSVCTrainTask:
         out = self._apply(
             self.generator, self._cast(batch["ppg"]), self._cast(sine),
             self._cast(batch["lft"]), self._cast(batch.get("spk_emb")),
-            fuse_film=inference)
+            fuse_film=inference, f32_out=True)
         # the losses (the STFT log magnitude above all) stay in f32
         return _wide(out)
 
@@ -115,8 +123,8 @@ class FastSVCTrainTask:
         metrics = {"spectral_convergence_loss": sc,
                    "log_stft_magnitude_loss": mag}
         if with_adv:
-            p_hat = [[_wide(t) for t in o] for o in
-                     self._apply(self.discriminator, self._cast(y_hat))]
+            p_hat = _tree(_wide, self._apply(self.discriminator,
+                                             self._cast(y_hat)))
             adv = generator_adversarial_loss(p_hat)
             metrics["adversarial_loss"] = adv
             gen_loss = gen_loss + self.lambda_adv * adv
@@ -128,8 +136,8 @@ class FastSVCTrainTask:
         B = y.shape[0]
         both = torch.cat([self._cast(y), self._cast(y_hat)], dim=0)
         p_both = self._apply(self.discriminator, both)
-        p = [[_wide(t[:B]) for t in o] for o in p_both]
-        p_hat = [[_wide(t[B:]) for t in o] for o in p_both]
+        p = _tree(lambda t: _wide(t[:B]), p_both)
+        p_hat = _tree(lambda t: _wide(t[B:]), p_both)
         real, fake = discriminator_adversarial_loss(p_hat, p)
         return real + fake, {"real_loss": real, "fake_loss": fake,
                              "discriminator_loss": real + fake}
@@ -222,6 +230,15 @@ class FastSVCTrainTask:
         metrics = self.run_steps(phase, batches, coefs)
         self.advance(phase, k)
         return metrics
+
+    @torch.no_grad()
+    def predict(self, batch, *, seed: int):
+        """G's output (B, T, 1) in f32 for a batch of device tensors, eager
+        and in the compute dtype, the excitation noise from a generator
+        seeded by `seed` (the trainer's intermediate dumps)."""
+        batch = self._unwire(batch)
+        rng = torch.Generator(device=self.device).manual_seed(seed)
+        return self._forward(batch, self._sine(batch, rng))
 
     @torch.no_grad()
     def eval_step(self, batch, *, with_adv: bool = True) -> dict:

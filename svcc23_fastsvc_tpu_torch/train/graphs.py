@@ -2,9 +2,13 @@
 
 The card's counterpart of the JAX trainer's K steps in one `lax.scan`
 program (`svcc23_fastsvc_tpu/train/gan.py::make_multi_step`): the host
-issues a training step's ~10^4 launches one by one and keeps the card
-idle more than half the time, so `StepGraphs` captures
-`FastSVCTrainTask.run_steps` over k steps once and replays it. It holds
+issues a training step's launches one by one (~10^4 for FastSVC, ~10^5
+for B02's recurrences) and keeps the card idle much of the time, so
+`StepGraphs` captures a task's `run_steps` over k steps once and replays
+it. The task is a `train.gan.FastSVCTrainTask` or a
+`train.b02.B02TrainTask`: both hold `generator`, `discriminator`, `g_opt`,
+`d_opt` and `rng`, and give `coefficient_table`, `run_steps` and
+`advance`. It holds
 one `torch.cuda.CUDAGraph` per (phase, k, batch field shapes and dtypes),
 captured at first use, all in one memory pool: the graphs run one after
 another on one stream, so each may reuse what the others freed.
@@ -19,8 +23,9 @@ another on one stream, so each may reuse what the others freed.
   library handles, plans and workspaces, the kernels' attributes) happens
   outside the graph. The models', moments' and noise generator's state is
   saved before it and put back after, so it leaves training where it was.
-- Noise. The task's excitation generator is registered with each graph:
-  a replay draws the numbers k eager steps would draw next.
+- Noise. The task's generator (FastSVC's excitation noise, B02's dropout
+  masks and window starts) is registered with each graph: a replay draws
+  the numbers k eager steps would draw next.
 - Outputs. The metrics, (k, n) in the graph's memory; each call returns a
   clone, as the next replay writes over them.
 - Addresses. A graph holds the addresses of the parameters and moments it
@@ -90,7 +95,7 @@ class _Graph:
 
 
 class StepGraphs:
-    """Captured k-step calls of one `FastSVCTrainTask` on the card.
+    """Captured k-step calls of one train task on the card.
 
     `stage(phase, batches)` sends k stacked host batches and the
     optimizers' next k coefficients to the device; `replay(graph)` runs

@@ -1,26 +1,33 @@
 """Host-side training loop around `train.gan.FastSVCTrainTask` and
 `train.b02.B02TrainTask`.
 
-Counterpart of `svcc23_fastsvc_tpu/train/loop.py::Trainer`, the part the
-FastSVC and B02 recipes run on one device: a step loop that picks
-`gen_step` up to `discriminator_train_start_steps` and `gan_step` after
-it, log, eval and save intervals, `train_max_steps`, resume, the packed
-wire format, and a graceful SIGTERM (checkpoint at the next call
-boundary, `preempted` set, the CLI exits 75).
+Counterpart of `svcc23_fastsvc_tpu/train/loop.py::Trainer` on one device:
+a step loop that picks `gen_step` up to `discriminator_train_start_steps`
+and `gan_step` after it, the warm-up fast-forward past
+`generator_train_start_steps`, log, eval and save intervals,
+`train_max_steps`, resume, the packed wire format, intermediate wav / png
+dumps after eval (`num_save_intermediate_results`), scalars to an optional
+tensorboard writer, a `torch.profiler` trace of the run (`profile_dir`),
+and a graceful SIGTERM (checkpoint at the next call boundary, `preempted`
+set, the CLI exits 75).
 
-`steps_per_call` K > 1 runs K steps a call, as the JAX trainer does
-(`lax.scan` there): calls split at the log, eval and save intervals and at
-the phase switch (`_next_boundary`, the JAX rule), k batches stacked and
-packed and sent in one transfer, and the log takes each call's mean over
-its steps. On the card a call is one replay of a captured CUDA graph
-(`train.graphs.StepGraphs`); on the CPU, `FastSVCTrainTask.multi_step`'s
-eager loop. A call of one step, and every step when K = 1, is the eager
-`gen_step` / `gan_step`. A B02 task runs one step a call only (its
-recipe's `steps_per_call: 1`; K-step B02 calls are not ported). Preemption
-is honoured between calls. Scalars go
-to the log only (no tensorboard yet). The batcher runs in the loop's
-thread (no prefetch thread), so its random state at a checkpoint is
-exactly that of the steps taken.
+`steps_per_call` K > 1 runs K steps a call for either task, as the JAX
+trainer does (`lax.scan` there): calls split at the log, eval and save
+intervals and at the phase switch (`_next_boundary`, the JAX rule), k
+batches stacked and packed and sent in one transfer, and the log takes
+each call's mean over its steps. On the card a call is one replay of a
+captured CUDA graph (`train.graphs.StepGraphs`); on the CPU, the task's
+`multi_step` eager loop. A call of one step, and every step when K = 1, is
+the eager `gen_step` / `gan_step`. Preemption is honoured between calls.
+
+Batches come from a batcher that queues ahead itself (`is_prefetching`:
+the native producer, a `BatcherPool`) or else through a
+`data.prefetch.PrefetchIterator` of depth max(2, 2K) that the trainer
+starts at its first step, as the JAX trainer wraps its batchers. The
+iterator records the batcher's random state with each batch, so a
+checkpoint saves the state of the first batch not yet taken, and `run`
+puts the batcher back there when it ends: `--resume` stays exact with the
+thread running ahead.
 
 CUDA runs asynchronously, so each interval's rate is taken after the
 metrics' transfer has drained the device queue: steps/s and audio-s/s
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import inspect
 import logging
+import os
 import signal as _signal
 import time
 from collections import defaultdict
@@ -40,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..data.prefetch import PrefetchIterator
 from ..data.wire import WirePacker, to_device
 from ..ops.conv import decide_conv_lowering
 from .checkpoint import (
@@ -52,18 +61,52 @@ from .graphs import StepGraphs
 
 
 def _stack(batches: list) -> dict:
-    """Host batches stacked on a new leading axis, field by field."""
+    """Host batches stacked on a new leading axis, field by field (a copy:
+    a producer's slot views may be released after it)."""
     return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def _plot_waveforms_png(path, gen, ref, sr):
+    """Waveforms and log spectrograms of a generated and a reference
+    utterance side by side (the JAX trainer's listening-check figure)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, axes = plt.subplots(2, 2, figsize=(10, 6))
+    t = np.arange(len(ref)) / sr
+    for col, (name, y) in enumerate((("generated", gen), ("reference", ref))):
+        axes[0, col].plot(t[:len(y)], y, linewidth=0.4)
+        axes[0, col].set_title(name)
+        axes[0, col].set_xlabel("s")
+        n_fft, hop = 1024, 256
+        if len(y) >= n_fft:
+            frames = 1 + (len(y) - n_fft) // hop
+            idx = np.arange(n_fft)[None, :] + hop * np.arange(frames)[:, None]
+            spec = np.abs(np.fft.rfft(np.asarray(y)[idx] * np.hanning(n_fft),
+                                      axis=1))
+            axes[1, col].imshow(
+                20 * np.log10(np.maximum(spec, 1e-5)).T, origin="lower",
+                aspect="auto", cmap="magma",
+                extent=[0, frames * hop / sr, 0, sr / 2 / 1000])
+            axes[1, col].set_ylabel("kHz")
+            axes[1, col].set_xlabel("s")
+    fig.tight_layout()
+    fig.savefig(path, dpi=100)
+    plt.close(fig)
 
 
 class Trainer:
     def __init__(self, task, train_batcher, *, config: dict, outdir: str,
-                 dev_batcher=None):
+                 dev_batcher=None, writer=None):
         self.task = task
         self.train_batcher = train_batcher
         self.dev_batcher = dev_batcher
         self.config = config
         self.outdir = outdir
+        # a tensorboard SummaryWriter (or anything with add_scalar), or None
+        self.writer = writer
         self.device = task.device
         # decide the conv lowering before the first step, as the JAX
         # trainer does: in "auto" mode the fused-conv probe runs (and
@@ -73,10 +116,7 @@ class Trainer:
         # K steps a call: on the card one captured CUDA graph per (phase,
         # k, batch layout), on the CPU an eager loop (train/graphs.py)
         self.steps_per_call = max(int(config.get("steps_per_call", 1)), 1)
-        if self.steps_per_call > 1 and not hasattr(task, "multi_step"):
-            raise NotImplementedError(
-                f"steps_per_call {self.steps_per_call}: K steps a call are "
-                f"not ported for {type(task).__name__}; use steps_per_call 1")
+        self._train_iter = None  # made at the first step (`_next_batch`)
         self._graphs = (StepGraphs(task) if self.steps_per_call > 1
                         and self.device.type == "cuda" else None)
         # the packed wire is exact only when the step casts to bf16 anyway
@@ -120,12 +160,39 @@ class Trainer:
     # -- checkpoints -------------------------------------------------------
 
     def _batcher_rng(self):
+        """The batcher's random state at the first batch not yet taken."""
+        if isinstance(self._train_iter, PrefetchIterator):
+            return self._train_iter.state
         rng = getattr(self.train_batcher, "rng", None)
         return None if rng is None else rng.bit_generator.state
+
+    def _next_batch(self):
+        if self._train_iter is None:
+            b = self.train_batcher
+            if getattr(b, "is_prefetching", False):
+                self._train_iter = iter(b)
+            else:
+                rng = getattr(b, "rng", None)
+                bg = None if rng is None else rng.bit_generator
+                self._train_iter = PrefetchIterator(
+                    b, depth=max(2, 2 * self.steps_per_call),
+                    state=None if bg is None else (lambda: bg.state),
+                    restore=None if bg is None else
+                    (lambda st: setattr(bg, "state", st)))
+        return next(self._train_iter)
+
+    def close(self):
+        """Stop the prefetch thread, the batcher put back at the first
+        batch not taken (a batcher that prefetches itself is the caller's
+        to close)."""
+        if isinstance(self._train_iter, PrefetchIterator):
+            self._train_iter.close()
+        self._train_iter = None
 
     def resume(self, path: Optional[str] = None, *, params_only=False):
         """Restore from a checkpoint file, or the latest under a directory
         (the outdir by default)."""
+        self.close()  # the batcher's state is about to be set
         path = path or self.outdir
         if path and not path.endswith(".pkl"):
             path = latest_checkpoint(path)
@@ -151,14 +218,20 @@ class Trainer:
         cfg = self.config
         max_steps = cfg["train_max_steps"]
         d_start = cfg["discriminator_train_start_steps"]
+        g_start = cfg.get("generator_train_start_steps", 0)
         log_iv = cfg["log_interval_steps"]
         eval_iv = cfg["eval_interval_steps"]
         save_iv = cfg["save_interval_steps"]
-        if cfg.get("generator_train_start_steps", 0):
-            raise NotImplementedError(
-                "generator_train_start_steps > 0 is not ported yet")
         waits = dict.fromkeys(("data", "step", "drain", "eval", "save"), 0.0)
         step = self.task.step
+        # the warm-up fast-forward of the JAX trainer: neither player trains
+        # until step > min(g_start, d_start), so the idle steps are skipped
+        # at once. Only the step count jumps: the optimizers' counts (RAdam's
+        # step, StepLR's epoch) stay, as optax's do in JAX.
+        if g_start > 0 and step <= min(g_start, d_start):
+            target = min(min(g_start, d_start) + 1, max_steps)
+            logging.info("warm-up fast-forward: step %d -> %d", step, target)
+            self.task.step = step = target
         t_last, steps_last = time.time(), step
 
         def _next_boundary(s):
@@ -170,6 +243,7 @@ class Trainer:
                 cands.append(d_start - s + 1)
             return max(min(cands), 1)
 
+        profiler = self._start_profiler(cfg.get("profile_dir"))
         try:
             while step < max_steps:
                 if self._preempt_requested:
@@ -182,7 +256,7 @@ class Trainer:
                 t0 = time.time()
                 if k > 1:
                     batches = self._pack(_stack(
-                        [self.train_batcher.sample_batch() for _ in range(k)]))
+                        [self._next_batch() for _ in range(k)]))
                     if self._graphs is not None:
                         staged = self._graphs.stage(phase, batches)
                     else:
@@ -197,7 +271,7 @@ class Trainer:
                     # logs it
                     metrics = {n: v.mean(0) for n, v in metrics.items()}
                 else:
-                    batch = self._pack(self.train_batcher.sample_batch())
+                    batch = self._pack(self._next_batch())
                     batch = to_device(batch, self.device)
                     waits["data"] += time.time() - t0
                     t0 = time.time()
@@ -239,14 +313,41 @@ class Trainer:
                 if self.dev_batcher is not None and step % eval_iv == 0:
                     t0 = time.time()
                     self._evaluate(step)
+                    self._save_intermediate(step)
                     waits["eval"] += time.time() - t0
                 if step % save_iv == 0:
                     t0 = time.time()
                     self.save()
                     waits["save"] += time.time() - t0
         finally:
-            # the crash-safe save of the reference trainer
+            if profiler is not None:
+                self._stop_profiler(profiler)
+            # the batcher back at the first batch not taken, then the
+            # crash-safe save of the reference trainer
+            self.close()
             self.save()
+
+    # -- profiling ---------------------------------------------------------
+
+    def _start_profiler(self, profile_dir):
+        """A `torch.profiler` session over the run (`profile_dir`), host
+        activity and, on the card, the kernels."""
+        if not profile_dir:
+            return None
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        prof.trace_path = os.path.join(
+            profile_dir, f"trace-step{self.task.step}.json")
+        return prof
+
+    def _stop_profiler(self, prof):
+        prof.stop()
+        os.makedirs(os.path.dirname(prof.trace_path), exist_ok=True)
+        prof.export_chrome_trace(prof.trace_path)
+        logging.info("profile written to %s", prof.trace_path)
 
     # -- logging ---------------------------------------------------------
 
@@ -262,6 +363,9 @@ class Trainer:
         self.history.append({"step": step, **items})
         logging.info("step %d: %s", step, ", ".join(
             f"{k}={v:.4f}" for k, v in sorted(items.items())))
+        if self.writer is not None:
+            for k, v in items.items():
+                self.writer.add_scalar(f"train/{k}", v, step)
         self._pending = []
 
     def _evaluate(self, step):
@@ -282,3 +386,44 @@ class Trainer:
         items = {k: v / max(n, 1) for k, v in totals.items()}
         logging.info("eval @ %d: %s", step, ", ".join(
             f"{k}={v:.4f}" for k, v in sorted(items.items())))
+        if self.writer is not None:
+            for k, v in items.items():
+                self.writer.add_scalar(f"eval/{k}", v, step)
+
+    def _save_intermediate(self, step):
+        """Generated and reference wavs (and a png of both) of the first
+        `num_save_intermediate_results` utterances of a dev batch, under
+        `predictions/step{step}/`, as the JAX trainer dumps them. The
+        forward is the task's `predict`: eager, in its compute dtype, the
+        excitation noise from a generator seeded by the step. A task
+        without one (B02) dumps nothing, and a failed dump only warns: a
+        dump never stops training. Without matplotlib the wavs are still
+        written."""
+        n = self.config.get("num_save_intermediate_results", 0)
+        if not n or not hasattr(self.task, "predict"):
+            return
+        try:
+            from ..bin.common import write_wav
+
+            batch = next(iter(self.dev_batcher))
+            y_hat = self.task.predict(to_device(batch, self.device),
+                                      seed=step).cpu().numpy()
+            outdir = os.path.join(self.outdir, "predictions", f"step{step}")
+            os.makedirs(outdir, exist_ok=True)
+            sr = self.config.get("sampling_rate", 16000)
+            pairs = []
+            for i in range(min(n, y_hat.shape[0])):
+                ref = np.asarray(batch["audio"][i, :, 0])
+                write_wav(os.path.join(outdir, f"{i}_gen.wav"),
+                          y_hat[i, :, 0], sr)
+                write_wav(os.path.join(outdir, f"{i}_ref.wav"), ref, sr)
+                pairs.append((i, y_hat[i, :, 0], ref))
+        except Exception as e:  # a dump never stops training
+            logging.warning("intermediate dump failed: %s", e, exc_info=True)
+            return
+        try:
+            for i, gen, ref in pairs:
+                _plot_waveforms_png(os.path.join(outdir, f"{i}.png"), gen,
+                                    ref, sr)
+        except Exception as e:  # matplotlib may be absent
+            logging.warning("no waveform pngs (%s); the wavs are written", e)

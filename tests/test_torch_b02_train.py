@@ -509,7 +509,8 @@ def test_eval_step_matches_jax_and_leaves_the_stream():
 
 def test_build_b02_task_defaults():
     """B02's own optimizer defaults (grad norm 1 for both, no weight decay)
-    and lambdas of 1, not the FastSVC ones; K steps a call are refused."""
+    and lambdas of 1, not the FastSVC ones; K steps a call are taken (on
+    the CPU by the task's eager `multi_step`, no graphs)."""
     cfg = {"generator_params": SMALL, "compute_dtype": "bfloat16",
            "discriminator_params": {"batch_max_frames": 7}}
     task = build_b02_task(cfg, device="cpu", seed=1)
@@ -521,8 +522,10 @@ def test_build_b02_task_defaults():
     assert set(task.generator.state_dict()) == set(
         tacotron2_state_dict_from_jax(_np(jt.Tacotron2(**SMALL).init(
             jax.random.PRNGKey(0)))))
-    with pytest.raises(NotImplementedError, match="steps_per_call"):
-        Trainer(task, None, config={"steps_per_call": 4}, outdir="unused")
+    trainer = Trainer(task, None, config={"steps_per_call": 4},
+                      outdir="unused")
+    assert trainer.steps_per_call == 4 and trainer._graphs is None
+    assert callable(task.multi_step)
 
 
 def _items(n=4, seed=13):

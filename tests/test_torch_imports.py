@@ -39,7 +39,10 @@ missing = sorted({"svcc23_fastsvc_tpu_torch.ops.down_chain",
                   "svcc23_fastsvc_tpu_torch.bin.normalize_b02",
                   "svcc23_fastsvc_tpu_torch.bin.evaluate",
                   "svcc23_fastsvc_tpu_torch.bin.split_train_dev",
-                  "svcc23_fastsvc_tpu_torch.utils.metrics"} - set(names))
+                  "svcc23_fastsvc_tpu_torch.utils.metrics",
+                  "svcc23_fastsvc_tpu_torch.data.prefetch",
+                  "svcc23_fastsvc_tpu_torch.data.native_batch",
+                  "svcc23_fastsvc_tpu_torch.utils.host_build"} - set(names))
 print(len(names), bad + missing)
 """
 

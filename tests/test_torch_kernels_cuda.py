@@ -91,6 +91,10 @@ CASES = [
     (1, 61, 5, 70, 5, 27, 0.2, True),     # K = 5: > 48 KB of shared memory
     (2, 300, 384, 384, 3, 1, None, True),  # the fused FiLM width
     (1, 1000, 144, 192, 3, 1, None, True),
+    # the HiFiGAN scale discriminator's stride-1 convs
+    (2, 4000, 1, 128, 15, 1, None, True),
+    (2, 63, 1024, 1024, 5, 1, None, True),
+    (2, 63, 1024, 1, 3, 1, None, True),
 ]
 
 
@@ -216,6 +220,8 @@ VARIANT_CASES = [
     (2, 129, 24, 1, 3, 9, 0.2, True),
     (8, 4100, 24, 40, 3, 9, 0.2, True),
     (4, 9000, 16, 24, 3, 27, None, True),
+    # the HiFiGAN scale discriminator's widest: 1024 channels, K = 5
+    (2, 63, 1024, 1024, 5, 1, 0.1, True),
 ]
 
 

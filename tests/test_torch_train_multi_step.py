@@ -80,11 +80,12 @@ def _check_weights(port_sd, start, jparams, dtype, *, per_tensor=True,
 
 # Per-step metrics: test_torch_train.py's LOSS_TOL in f32. In bf16 the
 # frameworks round in different places and the trajectories part: over
-# these six steps the spectral convergence loss of the sixth step is 3.25e-2
-# from JAX's (JAX's own bf16 is 0.98e-2 from its f32 there, the port's 2.2e-2
-# from its f32; measured on the CPU), past LOSS_TOL's 3e-2 for two steps.
-# Held at twice what was measured.
-STEP_TOL = {None: LOSS_TOL[None], torch.bfloat16: 6.5e-2}
+# these six steps the worst metric (the spectral convergence loss of the
+# first gan step) is 1.48e-2 from JAX's (measured on the CPU). It was
+# 3.25e-2 while the port rounded the generator's output to bf16 before the
+# f32 losses; XLA keeps the last conv's f32 sums there (`f32_out` of
+# FastSVCGenerator.forward). Held at twice what was measured.
+STEP_TOL = {None: LOSS_TOL[None], torch.bfloat16: 3.0e-2}
 
 # G's update after the six steps in f32: RAdam's rectified steps (5 and 6)
 # move a tensor by about lr whatever its gradient's size, so where the

@@ -42,20 +42,17 @@ UPDATE_TOL = {"G": 0.1, "D": 5e-3}
 
 
 class ListBatches:
-    """One list of batches for both trainers: the JAX trainer iterates it,
-    the port's calls `sample_batch()`."""
+    """One list of batches for either trainer, which both iterate (through
+    a prefetch thread); `taken` counts the batches handed out."""
 
     def __init__(self, batches):
         self.batches = batches
         self.taken = 0
 
     def __iter__(self):
-        return iter([dict(b) for b in self.batches])
-
-    def sample_batch(self):
-        b = self.batches[self.taken]
-        self.taken += 1
-        return {k: v.copy() for k, v in b.items()}
+        for b in self.batches:
+            self.taken += 1
+            yield {k: v.copy() for k, v in b.items()}
 
 
 def _config(steps_per_call, log_interval):
