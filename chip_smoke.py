@@ -4,7 +4,8 @@ vocoder's synthesis and the B02 acoustic model's decode and training on one
 H100, each fused-chain mode and the fused-conv switch too, FastSVC and B02
 training at K steps a call as captured CUDA graphs, the FastSVC and B02
 front ends (wavs to features to conversion), the recipe's batch loader,
-the HiFiGAN discriminator and the trainer's options.
+the HiFiGAN discriminator and the trainer's options, and both recipe
+drivers through the port's CLIs, every CLI a process of its own.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
@@ -133,8 +134,8 @@ Phases, each printed on one line with its elapsed seconds:
    phase 8's schedule with calls of 8 and 2 (split at the log interval),
    the rates, waits and peak memory of each phase's timed interval beside
    phase 8's (phase 25 runs the recipe's bf16 at K = 8);
-   one bf16 8-step gan call's device time (the replay's event time, and
-   the profile's kernel sum) and busy share beside phase 9's gan_step.
+   one bf16 8-step gan call's device time (the replay's event time) and
+   busy share beside phase 9's gan_step.
 22. B02 training (the Tacotron2 and MultiSubFreqDiscriminator at
    conf/taco2.yaml's width, random weights from a seed, cuDNN
    deterministic): one gan_step on 2 x 400 frames (its G update is the
@@ -161,9 +162,8 @@ Phases, each printed on one line with its elapsed seconds:
    `F0Statistics`, the `StandardScaler` fit and transform, then phase 4's
    f32 generator converts all 8 to one speaker (launch counts set to 0
    before the front end and read after the decode: 60 window convs and 1
-   sine). Then each stage timed alone (audio-s/s), the PPG's busy share,
-   peak memory, and the card against the CPU: the conformer and the
-   x-vector on 2 s and both log-mels (the linguistic stand-in's and the
+   sine), the pass's rate and peak memory, and the card against the CPU:
+   the conformer and the x-vector on 2 s and both log-mels (the linguistic stand-in's and the
    PPG's) by phase 7's rule (CPU f64, 4x the CPU f32's error), loudness
    within 1e-5 of max |y| of the CPU's, YIN's voicing on >= 99% of frames
    and F0 within 1e-4 relative.
@@ -178,10 +178,9 @@ Phases, each printed on one line with its elapsed seconds:
    decoded by phase 20's full-width Tacotron2 in one batch and vocoded by
    its HN-uSFGAN; mel L1 and MCD of each conversion against its source on
    the card (launch counts set to 0 before and read after: #1, #2, #8 and
-   #10, nothing else). Then the pass again warm, each stage alone
-   (audio-s/s), HuBERT's busy share, peak memory, and the card against
-   the CPU: HuBERT units, mcep, bap and loudness within 2x the CPU f32's
-   distance from f64 or 1e-5 of max |y|, continuous log-F0 and V/UV
+   #10, nothing else), the pass's rate and peak memory, and the card
+   against the CPU: HuBERT units, mcep, bap and loudness within 2x the CPU
+   f32's distance from f64 or 1e-5 of max |y|, continuous log-F0 and V/UV
    equal, the decode by phase 20's rule, the vocoder on two utterances
    within 1e-3 of max |y|, mel L1 and MCD within 1e-3 relative.
 25. the recipe's loader: `Trainer.run` on egs/svcc23/fastsvc1/conf/
@@ -194,12 +193,12 @@ Phases, each printed on one line with its elapsed seconds:
    thread); steps/s, audio-s/s and the data wait of each's last interval.
 26. B02 training at K steps a call (phase 22's width, 16 x 400 frames,
    cuDNN deterministic): captured calls, bf16 (packed wire) a 2-step gen
-   call and a 4-step gan call, f32 a 2-step gan call, each against K
-   eager steps from the same state, bit for bit (metrics, G and D with
-   their batch-norm statistics, moments, counts, the draws' generator);
-   the capture's seconds, the memory left reserved after it, a replayed
-   call's steps/s against the eager steps' and its busy share; the kernel
-   nodes of the f32 2-step gan call (one replay's kernel records).
+   call and a 4-step gan call, f32 (plain batches) a 2-step gan call,
+   each against K eager steps from the same state, bit for bit (metrics,
+   G and D with their batch-norm statistics, moments, counts, the draws'
+   generator); the capture's seconds, the memory left reserved after it,
+   a replayed call's steps/s against the eager steps' and its busy
+   share.
 27. the HiFiGAN MSD + MPD (the JAX model's defaults: 3 scales, periods 2,
    3, 5, 7, 11) with the recipe's generator: one gan_step held to CPU f64
    by phase 7's rule, two gan_steps from one state bit for bit (f32,
@@ -213,6 +212,21 @@ Phases, each printed on one line with its elapsed seconds:
    run), an eval and two intermediate dumps at step 7 and a
    `profile_dir`: the calls, counts and checkpoint, the dumps' generated
    wavs equal to the task's eager `predict`, the trace's kernel records.
+29. both recipe drivers on the card at once, each run as
+   `python -m svcc23_fastsvc_tpu_torch.recipes.<name> --device cuda` in a
+   process of its own, every stage's CLI a process too (no h5py or joblib
+   on that machine: the port's own codec and stats files): FastSVC stages
+   0-5 and B02 stages 0-5 and 7, phase 23's voices (2 speakers, 6 train
+   and 2 dev utterances of 2-4 s), stage 0 in hash mode, stage 1 at
+   `--n-jobs 2` through the local launcher, seeded conformer-PPG and
+   HuBERT-soft checkpoints for the linguistic features, the recipe yamls
+   as they are (full width; FastSVC bf16, K = 8, `loader_threads: 4`) with
+   the schedule cut to a few steps and a checkpoint, stage 7 through a
+   seeded HN-uSFGAN `.pkl`: each stage's seconds and processes, the kernel
+   launches of stages 4, 5 and 7 from the CLIs' exit logs (each kernel of
+   a stage's path launched), every converted wav's length and finiteness,
+   and FastSVC stage 5's wavs against an in-process `decode` of the same
+   checkpoint on the same dumps (equal PCM, else phase 4's bf16 bound).
 
 The line before the last is the kernels' JSON; the last line is
 `{"ok": true, "device": {...}}`, printed only when every phase passed. A
@@ -907,20 +921,14 @@ def k_step_phase(dev, items, counters, rates_1, step_profile):
         end.record()
         end.synchronize()
         replay_ms = start.elapsed_time(end)
-        per_kernel = device_ms(call, n=1, host_ops=False)
-        kernels_ms = sum(per_kernel.values())
-        say(f"profile K = {KSTEPS} gan call bf16 (B={TB} x 16000): wall "
+        say(f"K = {KSTEPS} gan call bf16 (B={TB} x 16000): wall "
             f"{wall_ms:.3f} ms/call ({wall_ms / KSTEPS:.3f} ms/step), "
             f"replay event time {replay_ms:.3f} ms ({replay_ms / KSTEPS:.3f} "
-            f"ms/step), busy {replay_ms / wall_ms:.1%}; the profiler's "
-            f"kernel sum {kernels_ms:.3f} ms ({kernels_ms / KSTEPS:.3f} "
-            f"ms/step, {len(per_kernel)} rows); phase 9's gan_step: wall "
+            f"ms/step), busy {replay_ms / wall_ms:.1%}; phase 9's gan_step: "
+            f"wall "
             f"{step_profile['wall_ms']:.3f} "
             f"ms, profiler kernels {step_profile['kernels_ms']:.3f} ms, "
             f"busy {step_profile['busy']:.1%}")
-        for kname, ms in list(per_kernel.items())[:12]:
-            say(f"  {ms / KSTEPS:8.4f} ms/step "
-                f"{ms / max(kernels_ms, 1e-9):6.1%}  {kname[:100]}")
         del task, graphs
     finally:
         torch.backends.cudnn.deterministic = False
@@ -2317,13 +2325,13 @@ FE_TRG = "spkB"  # every utterance is converted to this speaker
 TOL_FE, TOL_YIN, YIN_AGREE = 1e-5, 1e-4, 0.99
 
 
-def fe_singing(f0, sr, seed):
+def fe_singing(f0, sr, seed, seconds=FE_SECONDS):
     r = np.random.default_rng(seed)
-    t = np.arange(int(FE_SECONDS * sr)) / sr
+    t = np.arange(int(seconds * sr)) / sr
     inst = f0 * (1 + 0.03 * np.sin(2 * np.pi * 5.5 * t))
     phase = 2 * np.pi * np.cumsum(inst) / sr
     x = sum(0.5 ** k * np.sin((k + 1) * phase) for k in range(4))
-    env = 0.5 * (1 - np.cos(2 * np.pi * np.minimum(t / FE_SECONDS, 1)))
+    env = 0.5 * (1 - np.cos(2 * np.pi * np.minimum(t / seconds, 1)))
     return 0.3 * x * env + 0.002 * r.standard_normal(len(t))
 
 
@@ -2365,9 +2373,9 @@ def front_end_phase(dev, phases, g32, sg):
     reference-layout checkpoint, on the card); per-speaker
     `F0Statistics`; the `StandardScaler` fit and transform; every
     utterance converted to FE_TRG by `synthesize` with phase 4's f32
-    generator in one batch. (2) Each stage timed alone over the same
-    audio, the PPG's busy share under torch.profiler. (3) The card held
-    against the CPU."""
+    generator in one batch. (2) The card held against the CPU. (Each
+    stage timed alone, the PPG's busy share and a second, warm pass were
+    cut when phase 29 came to run these stages through the CLIs.)"""
     from svcc23_fastsvc_tpu_torch.bin.common import (
         iter_wav_scp,
         resample,
@@ -2385,7 +2393,6 @@ def front_end_phase(dev, phases, g32, sg):
         logmel_extract,
     )
     from svcc23_fastsvc_tpu_torch.dsp.f0 import F0Statistics, yin_f0
-    from svcc23_fastsvc_tpu_torch.dsp.harvest import harvest_f0
     from svcc23_fastsvc_tpu_torch.models.conformer_ppg import (
         ConformerPPG,
         frontend_logmel,
@@ -2497,59 +2504,14 @@ def front_end_phase(dev, phases, g32, sg):
             f"{[len(f['f0']) for f in feats.values()]}; log-F0 mean, std "
             f"{f0_rows}; launches {launches}")
         say(f"front end peak memory: {fe_peak / 2**30:.3f} GiB")
-        # the same front end again, warm (cuFFT plans, cuDNN algorithms and
-        # the lazily loaded kernels of the first pass in place)
-        t_warm = time.perf_counter()
-        speaker_embeddings(scp, "xvector", checkpoint=xv_path, device=dev)
-        for utt, audio, sr in utts:
-            extract_features(utt, audio, sr, cfg, f0min=70.0, f0max=400.0,
-                             linguistic="conformer", ppg_model=ppg_model,
-                             device=dev)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t_warm
-        say(f"front end again, warm: {warm_s:.3f} s ({audio_s / warm_s:.2f} "
-            "audio-s/s)")
         phases["front_end_path_s"] = time.perf_counter() - t
 
-        # (2) each stage alone over the same audio
-        t = time.perf_counter()
+        # the audio at 16 kHz on the card, for the holds
         a16 = [resample(a, sr, 16000) for _, a, sr in utts]
         x16 = [torch.as_tensor(a, dtype=torch.float32, device=dev)
                for a in a16]
-        stage = {
-            "harvest (host)": lambda: [harvest_f0(a, fs=16000) for a in a16],
-            "x-vector": lambda: [xvector.encode(x) for x in x16],
-            "loudness": lambda: [loudness_extract(x, SR, 64) for x in x16],
-            "yin": lambda: [yin_f0(x, sr=16000, hop=HOP) for x in x16],
-            "log-mel": lambda: [logmel_extract(x) for x in x16],
-            "conformer ppg": lambda: [ppg_model(x) for x in x16],
-        }
-        stage_s = {}
-        with torch.inference_mode():
-            for name, fn in stage.items():
-                fn()  # warm-up: cuFFT plans, cuDNN algorithms
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                stage_s[name] = time.perf_counter() - t0
-            for name, s in stage_s.items():
-                say(f"front end stage {name}: {s:.4f} s for {audio_s:.0f} "
-                    f"audio-s, {audio_s / s:.1f} audio-s/s")
-            # the PPG's busy share: the profiler's kernel sum over the wall
-            # time of the same 8 forwards unprofiled
-            wall = stage_s["conformer ppg"] * 1e3
-            per_kernel = device_ms(stage["conformer ppg"], n=1)
-            busy = sum(per_kernel.values())
-            say(f"front end conformer ppg busy: {busy:.3f} ms of kernels in "
-                f"{wall:.3f} ms wall, " + (
-                    f"{busy / wall:.1%}" if busy > 0 else
-                    "not measured (the profiler recorded no kernel)"))
-            for kname, ms in list(per_kernel.items())[:8]:
-                say(f"  {ms:8.4f} ms {ms / busy:6.1%}  {kname[:110]}")
-        phases["front_end_stages_s"] = time.perf_counter() - t
 
-        # (3) the card against the CPU
+        # (2) the card against the CPU
         t = time.perf_counter()
         holds = {}
         with torch.inference_mode():
@@ -2651,9 +2613,10 @@ def b02_front_end_phase(dev, phases):
     B02_TRG's mean log-F0 in whole semitones, decoded in one batch by
     phase 20's full-width Tacotron2 (`decode_batch`) and vocoded by phase
     20's HN-uSFGAN (`vocode`); mel L1 and MCD of each conversion against
-    its source (`evaluate.pair_metrics`) on the card. The same pass again,
-    warm. (2) Each stage timed alone, HuBERT's busy share under
-    torch.profiler. (3) The card held against the CPU."""
+    its source (`evaluate.pair_metrics`) on the card. (2) The card held
+    against the CPU. (Each stage timed alone, HuBERT's busy share and a
+    second, warm pass were cut when phase 29 came to run these stages
+    through the CLIs.)"""
     from svcc23_fastsvc_tpu_torch.bin.common import (
         iter_wav_scp,
         resample,
@@ -2687,13 +2650,7 @@ def b02_front_end_phase(dev, phases):
     )
     from svcc23_fastsvc_tpu_torch.dsp.f0 import F0Statistics, dilated_factor
     from svcc23_fastsvc_tpu_torch.dsp.harvest import harvest_f0
-    from svcc23_fastsvc_tpu_torch.dsp.world import (
-        band_aperiodicity,
-        cheaptrick,
-        mcepalpha,
-        sp2mc,
-        world_analyze,
-    )
+    from svcc23_fastsvc_tpu_torch.dsp.world import world_analyze
     from svcc23_fastsvc_tpu_torch.models.hubert import (
         HubertSoft,
         bshall_checkpoint,
@@ -2865,81 +2822,18 @@ def b02_front_end_phase(dev, phases):
             f"{inp['lengths'].tolist()}; mel L1 {mel:.4f}, MCD {mcd:.3f} dB "
             f"(random weights); launches {launches}")
         say(f"B02 front end -> conversion peak memory: {peak / 2**30:.3f} GiB")
-        t_warm = time.perf_counter()
-        embs_w, feats_w, norm_w = front_end()
-        torch.cuda.synchronize()
-        warm_fe_s = time.perf_counter() - t_warm
-        inp_w = conversion_inputs(embs_w, feats_w, norm_w)
-        evaluate_all(feats_w, inp_w, convert(inp_w, masks)[1])
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t_warm
-        say(f"B02 front end -> conversion again, warm: front end "
-            f"{warm_fe_s:.3f} s ({audio_s / warm_fe_s:.2f} audio-s/s), whole "
-            f"{warm_s:.3f} s ({audio_s / warm_s:.2f} audio-s/s)")
         phases["b02_front_end_path_s"] = time.perf_counter() - t
 
-        # (2) each stage alone, warm
-        t = time.perf_counter()
+        # the audio and Harvest F0 of each utterance, for the holds
         hop = world_hop(VSR, cfg["shiftms"])
-        alpha = mcepalpha(VSR)
         a24 = [resample(a, sr, VSR) for _, a, sr in utts]
-        a16 = [resample(a, sr, 16000) for _, a, sr in utts]
-        x24 = [torch.as_tensor(a, dtype=torch.float32, device=dev)
-               for a in a24]
-        x16 = [torch.as_tensor(a, dtype=torch.float32, device=dev)
-               for a in a16]
+        x16 = [torch.as_tensor(resample(a, sr, 16000), dtype=torch.float32,
+                               device=dev) for _, a, sr in utts]
         f0s = [harvest_f0(a, fs=VSR, f0_floor=f0min, f0_ceil=f0max,
                           frame_period_ms=cfg["shiftms"]).astype(np.float32)
                for a in a24]
-        f0d = [torch.from_numpy(f).to(dev) for f in f0s]
-        pos = [torch.arange(len(f), device=dev) * hop for f in f0s]
-        sps = [cheaptrick(x, f, p, fs=VSR) for x, f, p in zip(x24, f0d, pos)]
-        stage = {
-            "harvest 24 kHz (host)": lambda: [harvest_f0(
-                a, fs=VSR, f0_floor=f0min, f0_ceil=f0max,
-                frame_period_ms=cfg["shiftms"]) for a in a24],
-            "hubert": lambda: [hubert(x) for x in x16],
-            "cheaptrick": lambda: [cheaptrick(x, f, p, fs=VSR)
-                                   for x, f, p in zip(x24, f0d, pos)],
-            "band_aperiodicity": lambda: [band_aperiodicity(x, f, p, fs=VSR)
-                                          for x, f, p in zip(x24, f0d, pos)],
-            "sp2mc": lambda: [sp2mc(s, 59, alpha) for s in sps],
-            "loudness": lambda: [loudness_extract_frames(x, VSR, VHOP)
-                                 for x in x24],
-            "conversion (decode + vocoder)": lambda: convert(inp, masks),
-        }
-        stage_s = {}
-        with torch.inference_mode():
-            for name, fn in stage.items():
-                fn()  # warm-up: cuFFT plans, cuDNN algorithms
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                stage_s[name] = time.perf_counter() - t0
-            for name, s in stage_s.items():
-                say(f"B02 stage {name}: {s:.4f} s for {audio_s:.0f} audio-s, "
-                    f"{audio_s / s:.1f} audio-s/s")
-            # HuBERT's busy share: the device time of one forward (two
-            # queued behind a spin, CUDA events; eight forwards' ~2000
-            # launches overflow the launch queue behind it) x 8, and the
-            # profiler's kernel sum, each over the wall time of the same 8
-            # forwards unprofiled
-            wall = stage_s["hubert"] * 1e3
-            dev_ms = len(x16) * queued_ms(lambda: hubert(x16[0]), iters=2,
-                                          spin_cycles=HUBERT_SPIN_CYCLES)
-            per_kernel = device_ms(stage["hubert"], n=1)
-            busy = sum(per_kernel.values())
-            say(f"B02 hubert busy: {dev_ms:.3f} ms of device time (events) "
-                f"in {wall:.3f} ms wall, {dev_ms / wall:.1%}; profiler "
-                f"kernels {busy:.3f} ms" + (
-                    f" ({busy / wall:.1%})" if busy > 0 else
-                    " (not measured: the profiler recorded no kernel)"))
-            for kname, ms in list(per_kernel.items())[:8]:
-                say(f"  {ms:8.4f} ms {ms / busy:6.1%}  {kname[:110]}")
-        phases["b02_front_end_stages_s"] = time.perf_counter() - t
 
-        # (3) the card against the CPU (f32 and f64)
+        # (2) the card against the CPU (f32 and f64)
         t = time.perf_counter()
         holds = {}
         with torch.inference_mode():
@@ -3154,14 +3048,13 @@ def _b02_differing(a, b):
 def b02_k_step_phase(dev, counters):
     """Phase 26: B02 training at K steps a call as captured CUDA graphs, at
     phase 22's width and batch (16 x 400 frames), cuDNN deterministic: bf16
-    (packed wire) a captured 2-step gen call then a 4-step gan call, f32 a
-    2-step gan call, each against K eager steps from the same state,
-    metrics and G, D (batch-norm statistics included), moments, counts and
-    the draws' generator bit for bit; the capture's seconds (its eager
-    warm-up step included), the memory the capture leaves reserved, steps/s
-    of a replayed call against the eager steps' and its busy share (replay
-    event time over wall), and the f32 call's kernel nodes (one replay's
-    kernel records)."""
+    (packed wire) a captured 2-step gen call then a 4-step gan call, f32
+    (plain batches, no wire packing) a 2-step gan call, each against K
+    eager steps from the same state, metrics and G, D (batch-norm
+    statistics included), moments, counts and the draws' generator bit for
+    bit; the capture's seconds (its eager warm-up step included), the
+    memory the capture leaves reserved, steps/s of a replayed call against
+    the eager steps' and its busy share (replay event time over wall)."""
     from svcc23_fastsvc_tpu_torch.bin.common import deterministic_cudnn
     from svcc23_fastsvc_tpu_torch.config import build_b02_task
     from svcc23_fastsvc_tpu_torch.data.collate import B02Batcher
@@ -3247,26 +3140,12 @@ def b02_k_step_phase(dev, counters):
                 end.record()
                 end.synchronize()
                 replay_s = start.elapsed_time(end) / 1e3
-                nodes = None  # parsing ~10^5 records a step takes ~20 s
-                if dt_name == "float32":
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        graph.graph.replay()
-                        torch.cuda.synchronize()
-                    nodes = 0
-                    for e in prof.key_averages():
-                        dev_us = getattr(e, "self_device_time_total", None)
-                        if dev_us is None:
-                            dev_us = e.self_cuda_time_total
-                        if dev_us > 0 and e.cpu_time_total == 0:
-                            nodes += e.count
                 row.update({
                     "steps_per_s K-step call": K / wall_s,
                     "steps_per_s eager (K = 1)": 1 / row["eager_s_per_step"],
                     "call_wall_s": wall_s,
                     "replay_event_s": replay_s,
                     "busy": replay_s / wall_s,
-                    "kernel nodes a call": nodes,
-                    "kernel nodes a step": nodes and nodes / K,
                 })
                 say(f"B02 {dt_name} ({wire} wire) K = {K} {phase} call "
                     f"(B={TB3} x {TF3}): {row}")
@@ -3554,6 +3433,247 @@ def trainer_options_phase(dev, items, counters):
             f"a kernel was not launched in the options run: {launches}")
     say(f"trainer options main path: launches {launches}")
     return launches
+
+
+# phase 29: both recipe drivers from wavs to converted wavs through the
+# port's CLIs on the card, every CLI a process of its own; phase 23's
+# voices, two speakers, train and dev utterances of 2-4 s; the recipe
+# yamls as they are but for the schedule (RECIPE_CUTS)
+RECIPE_SPLITS = (("train", 6), ("dev", 2))
+RECIPE_CUTS = {
+    # K = 8 (steps_per_call): one 8-step gen call, one 8-step gan call
+    "fastsvc1": {"discriminator_train_start_steps": 8,
+                 "train_max_steps": 16, "save_interval_steps": 16},
+    # one step a call: two gen_steps, two gan_steps
+    "baseline02": {"discriminator_train_start_steps": 2,
+                   "train_max_steps": 4, "save_interval_steps": 4},
+}
+RECIPE_CONF = {"fastsvc1": ("fastsvc1", "fastsvc.yaml", SR),
+               "baseline02": ("baseline02", "taco2.yaml", VSR)}
+RECIPE_TRG = "spkB"
+RECIPE_DEVICE = "cuda"
+# the kernels each driver's stages must launch (the others may not run)
+RECIPE_KERNELS = {
+    "fastsvc1": {"4": ("sine_excitation", "window_conv", "window_conv_dx",
+                       "window_conv_wgrad"),
+                 "5": ("sine_excitation", "window_conv")},
+    "baseline02": {"4": ("window_conv", "window_conv_dx",
+                         "window_conv_wgrad"),
+                   "5": ("window_conv",),
+                   "7": ("pd_fixed_block", "pd_adaptive_block")},
+}
+RECIPE_TIMEOUT_S = 400
+
+
+def recipe_driver_log(text, counted):
+    """(stage -> {"s", "processes", "launches"}) from a driver's output:
+    its `stage N: ...` lines, its final `stages {json}` line, and the
+    `kernel launches: {json}` lines its CLIs log, each counted to the stage
+    that reports after it; each of those must count every wrapper named in
+    `counted`."""
+    report, pending = {}, []
+    for line in text.splitlines():
+        if "kernel launches: " in line:
+            pending.append(json.loads(line.split("kernel launches: ", 1)[1]))
+            require(set(pending[-1]) == counted,
+                    f"a CLI logged the launches of {sorted(pending[-1])}, "
+                    f"not of every counted wrapper {sorted(counted)}")
+        elif line.startswith("stage ") and ": " in line:
+            n = line.split(":", 1)[0].split(" ", 1)[1]
+            launches = {}
+            for counts in pending:
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+            report[n] = {"launches": launches}
+            pending = []
+        elif line.startswith("stages {"):
+            for n, row in json.loads(line.split(" ", 1)[1]).items():
+                report.setdefault(n, {"launches": {}}).update(row)
+    return report
+
+
+def recipe_drivers_phase(dev, phases):
+    """Phase 29: `python -m svcc23_fastsvc_tpu_torch.recipes.fastsvc1`
+    (stages 0-5) and `.baseline02` (stages 0-5 and 7), at once, each a
+    process of its own that runs every stage as CLI processes on the card
+    (`--device cuda`): stage 0 in `--mode hash` (no x-vector weights
+    in the repository), stage 1 at `--n-jobs 2` through the local launcher,
+    FastSVC's linguistic features from a seeded conformer PPG and B02's
+    from a seeded HuBERT-soft (reference layouts), each recipe yaml as it
+    is (full width; FastSVC bf16, K = 8, `loader_threads: 4`) but for the
+    schedule (RECIPE_CUTS), stage 7 through a seeded HN-uSFGAN `.pkl`.
+    Each stage's seconds, processes and, from the CLIs' logs, kernel
+    launches; every converted wav's length and finiteness; FastSVC stage
+    5's wavs against an in-process `decode` (its `synthesize`) of the same
+    checkpoint on the same dumps: equal PCM bit for bit, else within phase
+    4's bf16 bound."""
+    import signal
+
+    import yaml
+    from scipy.io import wavfile
+
+    from svcc23_fastsvc_tpu_torch.bin.common import read_wav, write_wav
+    from svcc23_fastsvc_tpu_torch.bin.decode_fastsvc import decode
+    from svcc23_fastsvc_tpu_torch.config import build_vocoder
+    from svcc23_fastsvc_tpu_torch.models.conformer_ppg import ConformerPPG
+    from svcc23_fastsvc_tpu_torch.models.hubert import (
+        HubertSoft,
+        bshall_checkpoint,
+    )
+    from svcc23_fastsvc_tpu_torch.train.checkpoint import (
+        latest_checkpoint,
+        save_generator_checkpoint,
+    )
+
+    from svcc23_fastsvc_tpu_torch.ops import counted_kernels
+
+    counted = {k.__name__ for k in counted_kernels()}
+    require(all(set(names) <= counted for stages in RECIPE_KERNELS.values()
+                for names in stages.values()),
+            f"RECIPE_KERNELS names a wrapper that counts no launches: "
+            f"{RECIPE_KERNELS}")
+    top = tempfile.mkdtemp(prefix="chip_smoke_recipes_")
+    out, runs = {}, {}
+    try:
+        # the seeded models, in the layouts the CLIs read
+        ppg_path = os.path.join(top, "24epoch.pth")
+        torch.save(reference_layout_weights(ConformerPPG, 10), ppg_path)
+        hubert_path = os.path.join(top, "hubert-soft-0d54a1f4.pt")
+        torch.save(bshall_checkpoint(HubertSoft(), seed=24), hubert_path)
+        voc_dir = os.path.join(top, "voc")
+        voc_cfg = {**VOC_CONFIG, "generator_params": {
+            **VOC_CONFIG["generator_params"], "aux_channels": 63}}
+        torch.manual_seed(15)
+        save_generator_checkpoint(
+            os.path.join(voc_dir, "checkpoint-100steps.pkl"),
+            build_vocoder(voc_cfg), 100)
+        with open(os.path.join(voc_dir, "config.yml"), "w") as f:
+            yaml.safe_dump(voc_cfg, f)
+        env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", "")}
+        logs, walls, texts = {}, {}, {}
+
+        for recipe, (egs, yml, sr) in RECIPE_CONF.items():
+            root = os.path.join(top, recipe)
+            for split, n in RECIPE_SPLITS:
+                d = os.path.join(root, "data", split)
+                os.makedirs(d)
+                with open(os.path.join(d, "wav.scp"), "w") as f:
+                    for i in range(n):
+                        utt = f"spk{'AB'[i % 2]}_{split}{i}"
+                        path = os.path.join(root, "wav", f"{utt}.wav")
+                        os.makedirs(os.path.dirname(path), exist_ok=True)
+                        write_wav(path, fe_singing(
+                            130.0 + 25 * (i + 4 * (split == "dev")), sr, i,
+                            seconds=2.0 + i % 3), sr)
+                        f.write(f"{utt} {path}\n")
+            with open(os.path.join(ROOT, "egs", "svcc23", egs, "conf",
+                                   yml)) as f:
+                cfg = yaml.safe_load(f)
+            cfg.update(RECIPE_CUTS[recipe])
+            with open(os.path.join(root, "conf.yaml"), "w") as f:
+                yaml.safe_dump(cfg, f)
+            argv = ["--conf", "conf.yaml", "--n-jobs", "2", "--speakers",
+                    RECIPE_TRG, "--device", RECIPE_DEVICE]
+            if recipe == "fastsvc1":
+                argv += ["--linguistic", "conformer", "--ppg-checkpoint",
+                         ppg_path]
+            else:
+                with open(os.path.join(root, "f0_stats.yml"), "w") as f:
+                    yaml.safe_dump({s: {"lf0_mean": float(np.log(f0)),
+                                        "lf0_scale": 0.1}
+                                    for s, f0 in (("spkA", 150.0),
+                                                  ("spkB", 240.0))}, f)
+                argv += ["--linguistic", "hubert", "--hubert-checkpoint",
+                         hubert_path, "--f0-stats", "f0_stats.yml",
+                         "--vocoder-dir", voc_dir]
+            logs[recipe] = os.path.join(root, "driver.log")
+            with open(logs[recipe], "w") as log:
+                runs[recipe] = subprocess.Popen(
+                    [sys.executable, "-m",
+                     f"svcc23_fastsvc_tpu_torch.recipes.{recipe}", *argv],
+                    cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT,
+                    start_new_session=True)  # its CLIs in its group
+        t = time.perf_counter()
+        for recipe, proc in runs.items():
+            try:
+                rc = proc.wait(timeout=max(
+                    1.0, RECIPE_TIMEOUT_S - (time.perf_counter() - t)))
+            except subprocess.TimeoutExpired:
+                rc = "timed out"
+            walls[recipe] = time.perf_counter() - t
+            with open(logs[recipe]) as f:
+                texts[recipe] = f.read()
+            require(rc == 0, f"{recipe} driver: rc {rc}\n"
+                    f"{texts[recipe][-6000:]}")
+
+        for recipe in RECIPE_CONF:
+            root = os.path.join(top, recipe)
+            report = recipe_driver_log(texts[recipe], counted)
+            want = ["0", "1", "2", "3", "4", "5"] + (
+                ["7"] if recipe == "baseline02" else [])
+            require(sorted(report) == want and all(
+                "s" in r for r in report.values()),
+                f"{recipe}: stages {sorted(report)}")
+            require(report["1"]["processes"] == 4,
+                    f"{recipe} stage 1: {report['1']}")
+            for n, names in RECIPE_KERNELS[recipe].items():
+                got = report[n]["launches"]
+                require(all(got.get(k, 0) > 0 for k in names),
+                        f"{recipe} stage {n}: a kernel of its path was not "
+                        f"launched: {got}")
+            for n, r in sorted(report.items()):
+                say(f"{recipe} stage {n}: {r['s']:.3f} s, {r['processes']} "
+                    f"processes, launches "
+                    f"{ {k: v for k, v in r['launches'].items() if v} }")
+            tag = os.path.join(root, "exp", "fastsvc" if recipe ==
+                               "fastsvc1" else "taco2")
+            wavs = {}
+            for name in sorted(os.listdir(os.path.join(tag, "wav"))):
+                audio, wsr = read_wav(os.path.join(tag, "wav", name))
+                wavs[name] = {"samples": len(audio), "sr": wsr,
+                              "finite": bool(np.isfinite(audio).all())}
+            require(len(wavs) == 2 and all(
+                w["finite"] and w["samples"] >= w["sr"]
+                for w in wavs.values()),
+                f"{recipe}: converted wavs {wavs}")
+            say(f"{recipe} converted wavs: {wavs}")
+            out[recipe] = {"wall_s": walls[recipe], "stages": report,
+                           "wavs": wavs}
+            phases[f"recipe_{recipe}_s"] = walls[recipe]
+
+        # FastSVC stage 5 against an in-process decode of its checkpoint
+        root = os.path.join(top, "fastsvc1")
+        exp = os.path.join(root, "exp", "fastsvc")
+        mine = os.path.join(top, "in_process")
+        decode(os.path.join(root, "dump", "dev_norm"),
+               latest_checkpoint(exp), mine,
+               f0_stats_dir=os.path.join(root, "dump", "f0_stats"),
+               spk_emb_file=os.path.join(root, "dump", "spk_embs.h5"),
+               convert_to_speakers=[RECIPE_TRG], device=dev)
+        held = {}
+        for name in sorted(os.listdir(os.path.join(exp, "wav"))):
+            a = wavfile.read(os.path.join(exp, "wav", name))[1]
+            b = wavfile.read(os.path.join(mine, name))[1]
+            require(a.shape == b.shape, f"{name}: {a.shape} vs {b.shape}")
+            diff = int(np.abs(a.astype(np.int64) - b).max())
+            scale = max(int(np.abs(b.astype(np.int64)).max()), 1)
+            held[name] = ("bit for bit" if diff == 0 else
+                          f"within {diff / scale:.3g} of max |y|")
+            require(diff <= TOL_DECODE[torch.bfloat16] * scale,
+                    f"{name}: stage 5 {diff} PCM steps from the in-process "
+                    f"decode (max |y| {scale})")
+        say(f"fastsvc1 stage 5 vs in-process decode: {held}")
+        out["stage5_vs_in_process"] = held
+    finally:
+        for proc in runs.values():  # what a failure left running: a
+            try:                    # driver and the CLIs it started
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+        shutil.rmtree(top, ignore_errors=True)
+    return out
 
 
 def main():
@@ -4029,6 +4149,19 @@ def main():
     options_launches = trainer_options_phase(dev, items, train_counters)
     phases["trainer_options_s"] = time.perf_counter() - t
     say(f"phase 28 (trainer options): {phases['trainer_options_s']:.1f} s")
+
+    # 29. both recipe drivers through the port's CLIs
+    t = time.perf_counter()
+    recipes = recipe_drivers_phase(dev, phases)
+    phases["recipe_drivers_s"] = time.perf_counter() - t
+    say(f"phase 29 (recipe drivers): {phases['recipe_drivers_s']:.1f} s")
+    recipe_paths = {}
+    for recipe in RECIPE_CONF:
+        total = {}
+        for row in recipes[recipe]["stages"].values():
+            for k, v in row["launches"].items():
+                total[k] = total.get(k, 0) + v
+        recipe_paths[f"recipe_{recipe}"] = total
     paths = {"decode": launches, "train": train_launches, **voc_launches,
              "decode_chain": down_launches, **fused_paths,
              "train_k_steps": k_launches, **b02_paths,
@@ -4037,10 +4170,18 @@ def main():
              "train_loader_k8": loader_launches,
              "b02_train_k_steps": b02_k_launches,
              "train_hifigan": hifi_launches,
-             "train_options": options_launches}
+             "train_options": options_launches, **recipe_paths}
     for row in kernels:
         name = row["name"].split(" ")[0]
         row["launches_by_path"] = {p: n.get(name, 0) for p, n in paths.items()}
+    # every counting wrapper has a row (the down chain's weight pack is
+    # #7's, reported beside its row as pack_launches)
+    from svcc23_fastsvc_tpu_torch.ops import counted_kernels
+
+    rowless = ({k.__name__ for k in counted_kernels()} - {"pack_weights"}
+               - {row["name"].split(" ")[0] for row in kernels})
+    require(not rowless, f"kernels with no row in the kernels line: "
+            f"{sorted(rowless)}")
     phases["total_s"] = time.perf_counter() - _T0
     say(f"phases: {phases}")
 

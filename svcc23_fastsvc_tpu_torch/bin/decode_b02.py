@@ -36,7 +36,12 @@ from ..data.dataset import B02Dataset
 from ..data.hdf5 import read_hdf5, write_hdf5
 from ..ops.conv import decide_conv_lowering
 from ..train.checkpoint import load_acoustic_model
-from .common import disable_tf32, setup_logging, utt_speaker
+from .common import (
+    disable_tf32,
+    log_kernel_launches,
+    setup_logging,
+    utt_speaker,
+)
 
 _C4_HZ = 440.0 * 2 ** (3 / 12 - 1)
 _C4_CENT = 4800.0
@@ -156,6 +161,7 @@ def main(argv=None):
                speakers=args.speakers, config_path=args.config,
                max_frames=args.max_frames, infer_dtype=args.infer_dtype,
                device=args.device, seed=args.seed)
+    log_kernel_launches()
 
 
 if __name__ == "__main__":

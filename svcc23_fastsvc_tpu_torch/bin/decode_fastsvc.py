@@ -33,7 +33,13 @@ from ..data.hdf5 import read_hdf5
 from ..dsp.f0 import F0Statistics
 from ..ops.conv import decide_conv_lowering
 from ..train.checkpoint import load_generator_state
-from .common import disable_tf32, setup_logging, utt_speaker, write_wav
+from .common import (
+    disable_tf32,
+    log_kernel_launches,
+    setup_logging,
+    utt_speaker,
+    write_wav,
+)
 
 
 # utterances are padded to a multiple of this many frames and synthesized
@@ -190,6 +196,7 @@ def main(argv=None):
         convert_to_speakers=args.speakers, config_path=args.config,
         infer_dtype=args.infer_dtype, device=args.device,
     )
+    log_kernel_launches()
 
 
 if __name__ == "__main__":

@@ -26,7 +26,12 @@ from ..config import parse_compute_dtype
 from ..data.dataset import USFGANDataset
 from ..ops.signal_gen import SignalGenerator
 from ..train.checkpoint import load_vocoder
-from .common import disable_tf32, setup_logging, write_wav
+from .common import (
+    disable_tf32,
+    log_kernel_launches,
+    setup_logging,
+    write_wav,
+)
 
 
 def read_config(path: str) -> dict:
@@ -127,6 +132,7 @@ def main(argv=None):
     synthesize_b02(args.dumpdir, args.checkpoint, args.outdir,
                    config_path=args.config, infer_dtype=args.infer_dtype,
                    device=args.device)
+    log_kernel_launches()
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ from ..train.loop import Trainer
 from .common import (
     deterministic_cudnn,
     disable_tf32,
+    log_kernel_launches,
     setup_logging,
     summary_writer,
 )
@@ -85,6 +86,7 @@ def main(argv=None):
     finally:
         if writer is not None:
             writer.close()
+    log_kernel_launches()
     if trainer.preempted:
         # EX_TEMPFAIL: a graceful preemption with a resumable checkpoint
         logging.info("preempted; checkpoint saved - exiting 75")

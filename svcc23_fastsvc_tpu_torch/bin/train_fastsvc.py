@@ -35,6 +35,7 @@ from ..train.loop import Trainer
 from .common import (
     deterministic_cudnn,
     disable_tf32,
+    log_kernel_launches,
     setup_logging,
     summary_writer,
 )
@@ -118,6 +119,7 @@ def main(argv=None):
         for closable in (train_batcher, writer):
             if hasattr(closable, "close"):
                 closable.close()
+    log_kernel_launches()
     if trainer.preempted:
         # EX_TEMPFAIL: a graceful preemption with a resumable checkpoint
         logging.info("preempted; checkpoint saved - exiting 75")

@@ -4,7 +4,8 @@ Counterparts of `svcc23_fastsvc_tpu/data/dataset.py`'s `FastSVCDataset`
 (per utterance: utt_id, wave (T,), f0 (T',), ppg (T', C), lft (T,),
 spk_emb (1, S)), `USFGANDataset` (the B02 vocoder's: utt_id, wave,
 aux = mcep | bap, sample-rate dilation factors, f0) and `B02Dataset` (the
-B02 acoustic model's fields).
+B02 acoustic model's fields), and of its scp-driven `AudioSCPDataset`
+(a wav.scp) and `FeatsScpDataset` (a feats.scp through `HDF5ScpLoader`).
 """
 
 from __future__ import annotations
@@ -91,8 +92,14 @@ class USFGANDataset:
         mcep = np.asarray(read_hdf5(f, "mcep"))
         bap = np.asarray(read_hdf5(f, "bap"))
         f0 = np.asarray(read_hdf5(f, "f0")).reshape(-1)
-        f0, aux = validate_length([f0, np.concatenate([mcep, bap], axis=1)])
-        f0, audio = validate_length([f0], [audio], self.hop_size)
+        # aux is trimmed with f0 where the wave is short of frames x hop
+        # (a dump's last frame is centred past the wave's end, so
+        # `preprocess_b02` dumps one frame more than the wave holds): the
+        # JAX dataset trims f0 only, and its aux then runs a frame past
+        # the excitation
+        f0, aux, audio = validate_length(
+            [f0, np.concatenate([mcep, bap], axis=1)], [audio],
+            self.hop_size)
         df = np.repeat(dilated_factor(f0, self.sample_rate,
                                       self.dense_factor),
                        self.hop_size, axis=0)
@@ -129,3 +136,51 @@ class B02Dataset:
         if self._cache is not None:
             self._cache[idx] = item
         return item
+
+
+class AudioSCPDataset:
+    """Audio of every entry of a wav.scp, the counterpart of the JAX
+    package's: per item the audio in [-1, 1] (f64) and the file's sampling
+    rate, (utt_id, (audio, sr)) with `return_utt_id`, audio alone without
+    `return_sampling_rate`."""
+
+    def __init__(self, wav_scp: str, *, return_utt_id: bool = False,
+                 return_sampling_rate: bool = True):
+        from ..bin.common import read_wav_scp
+
+        self.entries = list(read_wav_scp(wav_scp).items())
+        self.return_utt_id = return_utt_id
+        self.return_sampling_rate = return_sampling_rate
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, idx: int):
+        from ..bin.common import read_wav
+
+        utt_id, path = self.entries[idx]
+        audio, sr = read_wav(path)
+        item = (audio, sr) if self.return_sampling_rate else audio
+        return (utt_id, item) if self.return_utt_id else item
+
+
+class FeatsScpDataset:
+    """Features of every entry of a feats.scp, each resolved through
+    `HDF5ScpLoader` (the counterpart of the JAX package's): per item the
+    array, or (utt_id, array) with `return_utt_id`."""
+
+    def __init__(self, feats_scp: str, *, default_hdf5_path: str = "feats",
+                 return_utt_id: bool = False):
+        from .hdf5 import HDF5ScpLoader
+
+        self.loader = HDF5ScpLoader(feats_scp, default_hdf5_path)
+        self.utt_ids = list(self.loader.keys())
+        self.return_utt_id = return_utt_id
+
+    def __len__(self):
+        return len(self.utt_ids)
+
+    def __getitem__(self, idx: int):
+        utt_id = self.utt_ids[idx]
+        feats = self.loader[utt_id]
+        return (utt_id, feats) if self.return_utt_id else feats

@@ -14,8 +14,6 @@ from __future__ import annotations
 import math
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 
 def yin_f0(
@@ -32,6 +30,9 @@ def yin_f0(
 
     Frames are centred at k * hop (zero-padded), the frame count of
     WORLD's harvest at shiftms = hop / sr * 1000."""
+    import torch  # here, so that the host-only F0 statistics start fast
+    import torch.nn.functional as F
+
     T = x.shape[-1]
     n_frames = T // hop + 1
     W = frame_length // 2  # integration window

@@ -1,1 +1,2 @@
-"""Host-side utilities: the feature scalers."""
+"""Host-side utilities: the feature scalers, the job-array launcher,
+metrics and the host C++ build."""

@@ -265,27 +265,43 @@ def test_batch_norm_train_matches_jax(dtype):
 GRAD_TOL = {None: 1e-5, torch.bfloat16: 0.15}
 
 
-@pytest.mark.parametrize("dropout,dtype", [
-    (False, None), (False, torch.bfloat16), (True, None)],
-    ids=["f32", "bf16", "f32-dropout"])
-def test_teacher_forced_loss_and_gradient_match_jax(dropout, dtype):
-    jtask, state, task = _tasks(dropout=dropout, compute_dtype=dtype)
-    batch = _batch(7)
-    key = jax.random.PRNGKey(11)
+GRAD_KEY = 11  # the key of the teacher-forced gradient tests, batch 7
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_gen_grad(dropout=False, bf16=False):
+    """JAX's teacher-forced loss, metrics, statistics and G gradient on
+    batch 7 (shared by the gradient tests)."""
+    jtask, state, _, _ = _jax(dropout, bf16)
     (jloss, (jm, jbn)), jgrads = jax.jit(jax.value_and_grad(
-        lambda p: jtask._gen_loss(p, state.d_params, _jbatch(batch), key,
+        lambda p: jtask._gen_loss(p, state.d_params, _jbatch(_batch(7)),
+                                  jax.random.PRNGKey(GRAD_KEY),
                                   with_adv=False, g_bn=state.g_bn),
         has_aux=True))(state.g_params)
-    k_fwd, _ = jax.random.split(key)
+    return jloss, jm, jbn, tacotron2_state_dict_from_jax(_np(jgrads))
+
+
+def _port_gen_grad(dropout=False, compute_dtype=None):
+    """The port's on the same batch and JAX's draws: (task, loss, metrics,
+    statistics, G gradient)."""
+    jtask, _, task = _tasks(dropout=dropout, compute_dtype=compute_dtype)
+    k_fwd, _ = jax.random.split(jax.random.PRNGKey(GRAD_KEY))
     draws = {"g": jax_model_draws(jtask.generator, k_fwd, B, T)}
     if dropout:  # every dropout drew a mask
         assert all(m is not None for m in draws["g"]["enc"])
         assert draws["g"]["dec"].shape == (T, 2, B, 32)
-    loss, metrics, bn = task._gen_loss(to_device(batch, "cpu"), draws,
+    loss, metrics, bn = task._gen_loss(to_device(_batch(7), "cpu"), draws,
                                        with_adv=False)
-    grads = _param_grads(task.generator, loss)
-    want = {k: v for k, v in tacotron2_state_dict_from_jax(_np(jgrads))
-            .items() if k in grads}
+    return task, loss, metrics, bn, _param_grads(task.generator, loss)
+
+
+@pytest.mark.parametrize("dropout,dtype", [
+    (False, None), (False, torch.bfloat16), (True, None)],
+    ids=["f32", "bf16", "f32-dropout"])
+def test_teacher_forced_loss_and_gradient_match_jax(dropout, dtype):
+    jloss, jm, jbn, jgrads = _jax_gen_grad(dropout, dtype is not None)
+    task, loss, metrics, bn, grads = _port_gen_grad(dropout, dtype)
+    want = {k: v for k, v in jgrads.items() if k in grads}
     assert set(want) == set(grads)
     tol = 1e-5 if dtype is None else 2e-2
     assert _rel(metrics["mse_loss"], jm["mse_loss"]) < tol
@@ -304,6 +320,28 @@ def test_teacher_forced_loss_and_gradient_match_jax(dropout, dtype):
             assert err <= 1e-4 * max(want[k].abs().max().item(),
                                      1e-3 * top), k
 
+
+
+# XLA keeps f32 sums where a bf16 result feeds an f32 cast
+# (`--xla_allow_excess_precision`): in FastSVC that put the port's bf16
+# gradient three times JAX's distance from f32 until the generator's
+# `f32_out` kept them too. B02's prediction reaches the f32 masked MSE
+# through such a cast (`train/b02.py::_forward`). Measured on the CPU at
+# these sizes: the bf16 G gradient lies 0.0357 (port) and 0.0360 (JAX) in
+# relative L2 from the same package's f32 one, so the port rounds nothing
+# there that XLA keeps. Held: the port's distance at most 1.5x JAX's.
+ELISION_RATIO = 1.5
+
+
+def test_bf16_gradient_is_as_far_from_f32_as_jax():
+    p16, p32 = (_port_gen_grad(compute_dtype=dt)[4]
+                for dt in (torch.bfloat16, None))
+    port = _rel_l2(p16, p32)
+    ref = _rel_l2(*({k: _jax_gen_grad(bf16=b)[3][k] for k in p32}
+                    for b in (True, False)))
+    assert port <= ELISION_RATIO * ref, (
+        f"bf16 G gradient's rel L2 from f32: port {port:.4g}, "
+        f"JAX {ref:.4g}")
 
 def test_teacher_forced_forward_output_matches_jax():
     """The prediction itself (B, T, 63) and the returned lengths: train
