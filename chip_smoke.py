@@ -4,8 +4,9 @@ vocoder's synthesis and the B02 acoustic model's decode and training on one
 H100, each fused-chain mode and the fused-conv switch too, FastSVC and B02
 training at K steps a call as captured CUDA graphs, the FastSVC and B02
 front ends (wavs to features to conversion), the recipe's batch loader,
-the HiFiGAN discriminator and the trainer's options, and both recipe
-drivers through the port's CLIs, every CLI a process of its own.
+the HiFiGAN discriminator and the trainer's options, both recipe drivers
+through the port's CLIs, every CLI a process of its own, and FastSVC
+training across processes (data parallelism) on the one card.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
@@ -216,7 +217,7 @@ Phases, each printed on one line with its elapsed seconds:
    `python -m svcc23_fastsvc_tpu_torch.recipes.<name> --device cuda` in a
    process of its own, every stage's CLI a process too (no h5py or joblib
    on that machine: the port's own codec and stats files): FastSVC stages
-   0-5 and B02 stages 0-5 and 7, phase 23's voices (2 speakers, 6 train
+   0-5 and B02 stages 0-5 and 7, phase 23's voices (2 speakers, 4 train
    and 2 dev utterances of 2-4 s), stage 0 in hash mode, stage 1 at
    `--n-jobs 2` through the local launcher, seeded conformer-PPG and
    HuBERT-soft checkpoints for the linguistic features, the recipe yamls
@@ -227,6 +228,27 @@ Phases, each printed on one line with its elapsed seconds:
    a stage's path launched), every converted wav's length and finiteness,
    and FastSVC stage 5's wavs against an in-process `decode` of the same
    checkpoint on the same dumps (equal PCM, else phase 4's bf16 bound).
+
+30. data parallelism (`svcc23_fastsvc_tpu_torch/parallel/`) on the one
+   card: (a) two ranks, each a process (`chip_smoke.py --dp-rank`), share
+   it over gloo (`SVC_DIST_BACKEND=gloo`; NCCL refuses two ranks on one
+   device) and run one gen_step and one gan_step, each from the seed's
+   weights, on their halves of the recipe's batch (32 x 16000, f32, the
+   excitation fed), against one process on the whole batch: metrics
+   within 1e-4 relative; each model's update within 1e-3 relative L2 of
+   one process that runs the generator on the ranks' row blocks one after
+   another, and its distance from the plain one-process step beside it; the ranks' metrics and parameter checksums
+   equal, each rank's launches;
+   (b) one NCCL rank at the recipe's bf16 and K = 8: the gen and gan
+   calls captured with their all-reduces in the graphs, bit for bit equal
+   to the same captured calls without a data group, the gan replay's
+   event time beside theirs; (c) `train_fastsvc --n-procs 2` as two gloo
+   processes on phase 29's FastSVC dumps with its yaml at K = 1 and two
+   steps: both exit 0, their parameter checksums agree, rank 0 writes the
+   checkpoint, each rank's launches from its exit log. (a) also times a
+   warm second step of each phase on each rank and one gloo all-reduce of
+   each model's gradient size. N NCCL ranks on N cards need a machine
+   with several.
 
 The line before the last is the kernels' JSON; the last line is
 `{"ok": true, "device": {...}}`, printed only when every phase passed. A
@@ -239,6 +261,7 @@ import faulthandler
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2580,7 +2603,9 @@ B02_FE_CONFIG = {"sampling_rate": VSR, "hop_size": VHOP,
                  "shiftms": 6.6666666666, "mcep_dim": 59, "lft_hop_size": 64}
 B02_TRG = "spkB"
 B02_F0_RANGE = (70.0, 800.0)
-HUBERT_HOLD_S = 2.0  # seconds of the first utterance held against the CPU
+# seconds of the first utterance held against the CPU (2.0 until phase 30
+# was added: this cut helps pay for it)
+HUBERT_HOLD_S = 1.0
 B02_VOC_HELD = (0, 7)  # utterances vocoded on the CPU too
 HUBERT_SPIN_CYCLES = 400_000_000  # ~0.2 s: outlasts enqueueing 2 forwards
 # HuBERT units, mcep, bap and loudness: the card within F32_B02 x the CPU
@@ -3021,7 +3046,7 @@ def loader_phase(dev, items, counters):
     for k, v in rates.items():
         say(f"train K = {KSTEPS} bf16 (the recipe's yaml), {k}: {v}")
     say(f"loader main path: launches counted at capture {launches}")
-    return launches
+    return launches, rates
 
 
 B02_KS = (2, 4)  # steps a call of the captured B02 calls
@@ -3129,10 +3154,11 @@ def b02_k_step_phase(dev, counters):
             # part from here on)
             for K, phase, graph, stacked, row in captured:
                 t0 = time.perf_counter()
-                for _ in range(2):
-                    graphs.replay(graphs.stage(phase, stacked))
+                # one timed call (two until phase 30 was added: this cut
+                # helps pay for it)
+                graphs.replay(graphs.stage(phase, stacked))
                 torch.cuda.synchronize()
-                wall_s = (time.perf_counter() - t0) / 2
+                wall_s = time.perf_counter() - t0
                 start, end = (torch.cuda.Event(enable_timing=True)
                               for _ in range(2))
                 start.record()
@@ -3439,7 +3465,8 @@ def trainer_options_phase(dev, items, counters):
 # port's CLIs on the card, every CLI a process of its own; phase 23's
 # voices, two speakers, train and dev utterances of 2-4 s; the recipe
 # yamls as they are but for the schedule (RECIPE_CUTS)
-RECIPE_SPLITS = (("train", 6), ("dev", 2))
+# (6 train utterances until phase 30 was added: this cut helps pay for it)
+RECIPE_SPLITS = (("train", 4), ("dev", 2))
 RECIPE_CUTS = {
     # K = 8 (steps_per_call): one 8-step gen call, one 8-step gan call
     "fastsvc1": {"discriminator_train_start_steps": 8,
@@ -3492,7 +3519,7 @@ def recipe_driver_log(text, counted):
     return report
 
 
-def recipe_drivers_phase(dev, phases):
+def recipe_drivers_phase(dev, phases, keep_dir):
     """Phase 29: `python -m svcc23_fastsvc_tpu_torch.recipes.fastsvc1`
     (stages 0-5) and `.baseline02` (stages 0-5 and 7), at once, each a
     process of its own that runs every stage as CLI processes on the card
@@ -3506,7 +3533,8 @@ def recipe_drivers_phase(dev, phases):
     launches; every converted wav's length and finiteness; FastSVC stage
     5's wavs against an in-process `decode` (its `synthesize`) of the same
     checkpoint on the same dumps: equal PCM bit for bit, else within phase
-    4's bf16 bound."""
+    4's bf16 bound. The FastSVC driver's normalized train dumps and its
+    yaml are copied to `keep_dir` for phase 30."""
     import signal
 
     import yaml
@@ -3665,6 +3693,9 @@ def recipe_drivers_phase(dev, phases):
                     f"decode (max |y| {scale})")
         say(f"fastsvc1 stage 5 vs in-process decode: {held}")
         out["stage5_vs_in_process"] = held
+        shutil.copytree(os.path.join(root, "dump", "train_norm"),
+                        os.path.join(keep_dir, "train_norm"))
+        shutil.copy(os.path.join(root, "conf.yaml"), keep_dir)
     finally:
         for proc in runs.values():  # what a failure left running: a
             try:                    # driver and the CLIs it started
@@ -3674,6 +3705,447 @@ def recipe_drivers_phase(dev, phases):
             proc.wait()
         shutil.rmtree(top, ignore_errors=True)
     return out
+
+# phase 30: data parallelism on the one card. (a) two ranks share it over
+# gloo (NCCL refuses two ranks on one device), one gen_step and one
+# gan_step each from the seed's weights, at the recipe's width and batch
+# (TRAIN_CONFIG, 32 x 16000 split 16 + 16), f32, the excitation fed;
+# (b) one NCCL rank at the recipe's bf16 and K = 8, its all-reduces
+# captured in the graphs; (c) the training CLI as two gloo ranks on phase
+# 29's dumps. N NCCL ranks on N cards wait for a machine with several.
+DP_RANKS = 2
+DP_TIMEOUT_S = 300
+TOL_DP_LOSS = 1e-4  # metrics, relative: the halves' sums in another order
+# each model's update, relative L2, against one process that runs the
+# generator on the ranks' row blocks one after another: the log-magnitude
+# term's gradient amplifies f32 round-off (ROADMAP: f32 gradients a median
+# 1.1% from f64), and the weight gradients summed over 16-row blocks
+# round otherwise than over 32 rows, which moved one process's gen_step G
+# update by 4.8e-3 on the H100; the distance from the plain
+# one-process step is reported beside it
+TOL_DP_UPDATE = 1e-3
+DP_CLI_STEPS = 2  # one gen_step, one gan_step a rank
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _flat_params(task):
+    return {who: torch.cat([p.detach().reshape(-1).double().cpu()
+                            for p in m.parameters()])
+            for who, m in (("G", task.generator),
+                           ("D", task.discriminator))}
+
+
+class BlocksGenerator(torch.nn.Module):
+    """The generator run on the ranks' row blocks one after another, the
+    outputs concatenated: one process's step that computes what the ranks
+    compute, block by block (a 30(a) reference). Its parameters are the
+    wrapped generator's."""
+
+    def __init__(self, generator, parts):
+        super().__init__()
+        self.inner, self.parts = generator, parts
+
+    def forward(self, *args, **kwargs):
+        rows = args[0].shape[0] // self.parts
+        return torch.cat([self.inner(*(
+            None if a is None else a[i * rows:(i + 1) * rows]
+            for a in args), **kwargs) for i in range(self.parts)])
+
+
+def dp_step_run(dev, batch, phase, mesh=None, blocks=None):
+    """One `phase` step of TRAIN_CONFIG (f32) from the seed's weights on
+    `batch` (host arrays, excitation included), on this rank's rows when
+    `mesh` is a data group, the generator run on `blocks` row blocks when
+    given: (metrics, G and D updates as f64 vectors, task)."""
+    from svcc23_fastsvc_tpu_torch.config import build_train_task
+    from svcc23_fastsvc_tpu_torch.parallel import (
+        shard_batch,
+        shard_map_step_dp,
+    )
+
+    task = build_train_task(TRAIN_CONFIG, device=dev, seed=3)
+    if blocks is not None:
+        task.generator = BlocksGenerator(task.generator, blocks)
+    before = _flat_params(task)
+    step = (getattr(task, f"{phase}_step") if mesh is None
+            else shard_map_step_dp(task, phase, mesh))
+    metrics = step(shard_batch(batch, mesh, device=dev))
+    torch.cuda.synchronize()
+    after = _flat_params(task)
+    return ({k: float(v) for k, v in metrics.items()},
+            {who: after[who] - before[who] for who in after}, task)
+
+
+def dp_rank_main(rank, port, workdir):
+    """`python3 chip_smoke.py --dp-rank R PORT DIR`: rank R of phase
+    30(a), over gloo on the card: its gen_step and gan_step on its rows of
+    DIR/batch.pt; metrics, launches and the replicas' checksum (and on rank
+    0 the updates) to DIR/rank{R}.pt, with a second, warm step of each
+    phase timed and one all-reduce of each model's gradient size timed
+    alone."""
+    sys.path.insert(0, ROOT)
+    from svcc23_fastsvc_tpu_torch.bin.common import (
+        deterministic_cudnn,
+        disable_tf32,
+    )
+    from svcc23_fastsvc_tpu_torch.ops import counted_kernels
+    from svcc23_fastsvc_tpu_torch.parallel import (
+        initialize,
+        make_mesh,
+        shard_batch,
+    )
+    from svcc23_fastsvc_tpu_torch.parallel.distributed import (
+        replica_checksum,
+    )
+    from svcc23_fastsvc_tpu_torch.parallel.mesh import pmean
+
+    disable_tf32()
+    deterministic_cudnn()
+    dev = initialize(f"127.0.0.1:{port}", DP_RANKS, rank, device="cuda")
+    mesh = make_mesh()
+    batch = torch.load(os.path.join(workdir, "batch.pt"), weights_only=False)
+    out = {"metrics": {}, "launches": {}, "checksum": {}, "update": {},
+           "step_ms": {}, "all_reduce_ms": {}}
+    for phase in ("gen", "gan"):
+        for c in counted_kernels():
+            c.launches = 0
+        metrics, update, task = dp_step_run(dev, batch, phase, mesh)
+        out["launches"][phase] = {c.__name__: c.launches
+                                  for c in counted_kernels() if c.launches}
+        out["metrics"][phase] = metrics
+        out["checksum"][phase] = replica_checksum(task.generator,
+                                                  task.discriminator)
+        if rank == 0:
+            out["update"][phase] = {k: v.float() for k, v in update.items()}
+        # a second step of the phase on the same rows, warm, timed
+        step = getattr(task, f"{phase}_step")
+        local = shard_batch(batch, mesh, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(local)
+        torch.cuda.synchronize()
+        out["step_ms"][phase] = (time.perf_counter() - t) * 1e3
+        del task
+    # the gradient all-reduce alone: one flat f32 buffer of each model's
+    # size on the card, as `pmean` sends it, median of 5 after 2 warm
+    for who, n in (("G", update["G"].numel()), ("D", update["D"].numel())):
+        flat = torch.ones(n, device=dev)
+        times = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pmean([flat], mesh)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        out["all_reduce_ms"][who] = statistics.median(times[2:])
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _wait_all(procs, what, logs=None):
+    """Wait for every process (DP_TIMEOUT_S in all); kill what is left and
+    raise with the failing one's log tail."""
+    t = time.perf_counter()
+    rcs = []
+    try:
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=max(
+                    1.0, DP_TIMEOUT_S - (time.perf_counter() - t))))
+            except subprocess.TimeoutExpired:
+                rcs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, rc in enumerate(rcs):
+        tail = ""
+        if logs is not None:
+            with open(logs[i]) as f:
+                tail = f.read()[-4000:]
+        require(rc == 0, f"{what} {i}: rc {rc}\n{tail}")
+    return time.perf_counter() - t
+
+
+def dp_phase(dev, items, keep_dir, counters, loader_rate):
+    """Phase 30: (a), then (c), as processes, then (b) in this
+    process (see the constants above; `loader_rate` is phase 25's timed
+    interval at K = 8). Returns the launches of the counted kernels by
+    path and rank."""
+    import yaml
+
+    from svcc23_fastsvc_tpu_torch.bin.common import deterministic_cudnn
+    from svcc23_fastsvc_tpu_torch.config import (
+        build_signal_generator,
+        load_config,
+    )
+    from svcc23_fastsvc_tpu_torch.data.collate import FastSVCBatcher
+    from svcc23_fastsvc_tpu_torch.data.wire import to_device
+
+    deterministic_cudnn()  # as the training CLI sets it
+    paths = {}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    procs = []
+    try:
+        # (a)'s global batch: the recipe's, with the excitation made here
+        # (sine kernel and noise), so every rank and the reference get it
+        batch = FastSVCBatcher(items, batch_size=TB, batch_length=16000,
+                               hop_size=HOP, seed=3).sample_batch()
+        sg = build_signal_generator(TRAIN_CONFIG)
+        f0 = torch.as_tensor(batch["f0"]).to(dev)
+        batch["sine"] = sg(f0, torch.Generator(device=dev).manual_seed(4)
+                           ).cpu().numpy()
+        torch.save(batch, os.path.join(workdir, "batch.pt"))
+        env = {**os.environ, "SVC_DIST_BACKEND": "gloo",
+               "PYTHONPATH": ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", "")}
+        port = _free_port()
+        logs = [os.path.join(workdir, f"rank{r}.log") for r in
+                range(DP_RANKS)]
+        t_a = time.perf_counter()
+        for r in range(DP_RANKS):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--dp-rank",
+                     str(r), str(port), workdir], env=env, stdout=log,
+                    stderr=subprocess.STDOUT))
+        # (a)'s references: one process on the global batch, its
+        # generator run on the ranks' row blocks (held to) and as it is
+        # (reported)
+        ref, ref_ms, plain, plain_tasks = {}, {}, {}, {}
+        for phase in ("gen", "gan"):
+            *plain[phase], plain_tasks[phase] = dp_step_run(dev, batch,
+                                                            phase)
+            metrics, update, task = dp_step_run(dev, batch, phase,
+                                                blocks=DP_RANKS)
+            ref[phase] = (metrics, update)
+            del task
+        _wait_all(procs[:DP_RANKS], "DP rank", logs)
+        # one process's warm step, timed once the ranks have left the card
+        tbatch = to_device(batch, dev)
+        for phase, task in plain_tasks.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            getattr(task, f"{phase}_step")(tbatch)
+            torch.cuda.synchronize()
+            ref_ms[phase] = (time.perf_counter() - t) * 1e3
+        del plain_tasks, task
+        ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_RANKS)]
+        report = {}
+        for phase in ("gen", "gan"):
+            want_m, want_u = ref[phase]
+            got_m = ranks[0]["metrics"][phase]
+            require(all(r["metrics"][phase] == got_m for r in ranks)
+                    and all(r["checksum"][phase] == ranks[0]["checksum"][
+                        phase] for r in ranks),
+                    f"DP {phase}: the ranks differ")
+            rel = {k: abs(got_m[k] - v) / max(abs(v), 1e-12)
+                   for k, v in want_m.items()}
+            rel_plain = {k: abs(got_m[k] - v) / max(abs(v), 1e-12)
+                         for k, v in plain[phase][0].items()}
+
+            def l2(a, b):  # a gen_step leaves D as it is: 0 in both
+                diff = (a.double() - b).norm()
+                return (diff / b.norm()).item() if b.norm() else float(diff)
+
+            got_u = ranks[0]["update"][phase]
+            dist_l2 = {who: l2(got_u[who], want_u[who]) for who in want_u}
+            report[phase] = {
+                "max metric rel err": max(rel.values()),
+                "update rel L2": dist_l2,
+                "vs one process's plain loss: max metric rel err":
+                    max(rel_plain.values()),
+                "update rel L2 (plain)": {
+                    who: l2(got_u[who], u)
+                    for who, u in plain[phase][1].items()}}
+            require(set(got_m) == set(want_m)
+                    and max(max(rel.values()), max(rel_plain.values()))
+                    <= TOL_DP_LOSS,
+                    f"DP {phase}: metrics {got_m} vs one process {want_m}")
+            require(all(d <= TOL_DP_UPDATE for d in dist_l2.values()),
+                    f"DP {phase}: update distances {report[phase]}")
+            for r, rk in enumerate(ranks):
+                paths[f"dp_train_gloo_rank{r}"] = paths.get(
+                    f"dp_train_gloo_rank{r}", {})
+                for k, v in rk["launches"][phase].items():
+                    paths[f"dp_train_gloo_rank{r}"][k] = paths[
+                        f"dp_train_gloo_rank{r}"].get(k, 0) + v
+        trained = ("window_conv", "window_conv_dx", "window_conv_wgrad")
+        require(all(paths[f"dp_train_gloo_rank{r}"].get(k, 0) > 0
+                    for r in range(DP_RANKS) for k in trained),
+                f"DP (a): a kernel of the step was not launched on a rank: "
+                f"{paths}")
+        say(f"DP (a) 2 gloo ranks on the card vs one process (B={TB} x "
+            f"16000, f32, each step from the seed's weights, excitation "
+            f"fed): {report}; the ranks' metrics and checksums equal; "
+            f"launches by rank "
+            f"{[paths[f'dp_train_gloo_rank{r}'] for r in range(DP_RANKS)]}; "
+            f"warm step ms by rank "
+            f"{[rk['step_ms'] for rk in ranks]} (one process {ref_ms}); "
+            f"one gloo all-reduce of G's / D's gradient size by rank "
+            f"{[rk['all_reduce_ms'] for rk in ranks]} ms; "
+            f"(a) wall {time.perf_counter() - t_a:.1f} s")
+
+        # (c): the CLI, two gloo ranks, the recipe yaml at K = 1, 2 steps
+        cfg = load_config(os.path.join(keep_dir, "conf.yaml"))
+        cfg.update(steps_per_call=1, discriminator_train_start_steps=1,
+                   train_max_steps=DP_CLI_STEPS,
+                   save_interval_steps=DP_CLI_STEPS,
+                   log_interval_steps=DP_CLI_STEPS)
+        cli_yaml = os.path.join(workdir, "cli.yaml")
+        with open(cli_yaml, "w") as f:
+            yaml.safe_dump(cfg, f)
+        cli_out = os.path.join(workdir, "exp")
+        cli_logs = [os.path.join(workdir, f"cli{r}.log")
+                    for r in range(DP_RANKS)]
+        coordinator = f"127.0.0.1:{_free_port()}"
+        t_c = time.perf_counter()
+        cli = []
+        for r in range(DP_RANKS):
+            with open(cli_logs[r], "w") as log:
+                cli.append(subprocess.Popen(
+                    [sys.executable, "-m",
+                     "svcc23_fastsvc_tpu_torch.bin.train_fastsvc",
+                     "--train-dumpdir", os.path.join(keep_dir, "train_norm"),
+                     "--outdir", cli_out, "--config", cli_yaml,
+                     "--n-procs", str(DP_RANKS), "--proc-id", str(r),
+                     "--coordinator", coordinator], env=env, stdout=log,
+                    stderr=subprocess.STDOUT))
+        procs += cli
+        _wait_all(cli, "DP CLI rank", cli_logs)
+        sums, cli_launches = [], []
+        for r, path in enumerate(cli_logs):
+            with open(path) as f:
+                text = f.read()
+            require("data-parallel over 2 devices (2 processes)" in text,
+                    f"CLI rank {r}: no data-parallel line")
+            sums += [ln.split("parameter checksum: ", 1)[1].strip()
+                     for ln in text.splitlines()
+                     if "parameter checksum: " in ln]
+            counts = [json.loads(ln.split("kernel launches: ", 1)[1])
+                      for ln in text.splitlines() if "kernel launches: " in ln]
+            require(len(counts) == 1, f"CLI rank {r}: launch lines {counts}")
+            cli_launches.append({k: v for k, v in counts[0].items() if v})
+            paths[f"dp_cli_rank{r}"] = counts[0]
+        require(len(sums) == DP_RANKS and len(set(sums)) == 1,
+                f"CLI ranks' parameter checksums {sums}")
+        require(all(paths[f"dp_cli_rank{r}"].get(k, 0) > 0
+                    for r in range(DP_RANKS)
+                    for k in ("sine_excitation", *trained)),
+                f"DP (c): a kernel of the step was not launched on a rank: "
+                f"{cli_launches}")
+        ckpt = os.path.join(cli_out, f"checkpoint-{DP_CLI_STEPS}steps.pkl")
+        require(os.path.exists(ckpt), f"CLI: no {ckpt}")
+        say(f"DP (c) train_fastsvc --n-procs 2 (gloo, one card, the recipe "
+            f"yaml at K = 1, {DP_CLI_STEPS} steps): both rc 0, checksums "
+            f"equal ({sums[0][:16]}), rank 0's checkpoint written, launches "
+            f"by rank {cli_launches}, wall {time.perf_counter() - t_c:.1f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(keep_dir, ignore_errors=True)
+
+    # (b) one NCCL rank, K = 8 captured, against the same calls without a
+    # data group: an all-reduce over one rank is the identity
+    try:
+        paths["dp_train_k8_nccl"] = dp_nccl_k_steps(dev, items, counters,
+                                                    loader_rate)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return paths
+
+
+def dp_nccl_k_steps(dev, items, counters, loader_rate):
+    from svcc23_fastsvc_tpu_torch.config import build_train_task, load_config
+    from svcc23_fastsvc_tpu_torch.data.collate import FastSVCBatcher
+    from svcc23_fastsvc_tpu_torch.data.wire import WirePacker
+    from svcc23_fastsvc_tpu_torch.parallel import make_mesh, shard_map_step_dp
+    from svcc23_fastsvc_tpu_torch.train.graphs import StepGraphs
+    from svcc23_fastsvc_tpu_torch.train.loop import _stack
+
+    dist = torch.distributed
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        recipe = load_config(os.path.join(ROOT, RECIPE_YAML))
+        require(recipe["compute_dtype"] == "bfloat16"
+                and recipe["steps_per_call"] == KSTEPS,
+                f"{RECIPE_YAML}: not bf16 at K = {KSTEPS}")
+        cfg = {**recipe, **LOADER_SCHEDULE}
+        plain = build_train_task(cfg, device=dev, seed=7)
+        dp = build_train_task(cfg, device=dev, seed=7)
+        shard_map_step_dp(dp, "gen", make_mesh())  # dp.dp_group: 1 rank
+        g_plain, g_dp = StepGraphs(plain), StepGraphs(dp)
+        batcher = FastSVCBatcher(items, batch_size=recipe["batch_size"],
+                                 batch_length=recipe["batch_length"],
+                                 hop_size=HOP, seed=5)
+        pack = WirePacker(hop_size=HOP)
+        host = [pack(_stack([batcher.sample_batch() for _ in range(KSTEPS)]))
+                for _ in range(2)]
+        report = {}
+        launches = dict.fromkeys((c.__name__ for c in counters), 0)
+        for i, phase in enumerate(("gen", "gan")):
+            want = g_plain.replay(g_plain.stage(phase, host[i]))
+            for c in counters:  # the data-parallel calls' launches only
+                c.launches = 0
+            t0 = time.perf_counter()
+            got = g_dp.replay(g_dp.stage(phase, host[i]))
+            torch.cuda.synchronize()
+            for c in counters:
+                launches[c.__name__] += c.launches
+            report[f"{phase} capture and replay s"] = (time.perf_counter()
+                                                       - t0)
+            report[f"{phase} metrics that differ"] = sum(
+                not torch.equal(v, want[n]) for n, v in got.items())
+            report[f"{phase} state that differs"] = _differing(plain, dp)
+        require(all(report[f"{p} metrics that differ"] == 0
+                    and not any(report[f"{p} state that differs"].values())
+                    for p in ("gen", "gan")),
+                f"NCCL K = {KSTEPS} calls differ from the calls without a "
+                f"data group: {report}")
+        require(all(n > 0 for n in launches.values()),
+                f"a kernel was not launched on the NCCL K-step path: "
+                f"{launches}")
+        # the gan call's replay, turns plain, dp, dp, plain
+        gan = {name: next(g for key, g in graphs_of.graphs.items()
+                          if key[0] == "gan")
+               for name, graphs_of in (("plain", g_plain), ("dp", g_dp))}
+        times = {"plain": [], "dp": []}
+        for name in ("plain", "dp", "dp", "plain"):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            gan[name].graph.replay()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+        say(f"DP (b) one NCCL rank, bf16 K = {KSTEPS} captured (all-reduces "
+            f"in the graph) vs the same calls without a data group: "
+            f"{report}; launches at capture {launches}; gan replay event "
+            f"ms (turns plain, dp, dp, plain) {times}, "
+            f"{statistics.mean(times['dp']) / KSTEPS:.3f} ms a step with "
+            f"the data group, {statistics.mean(times['plain']) / KSTEPS:.3f}"
+            f" without; phase 25's K = {KSTEPS} gan interval "
+            f"{1e3 / loader_rate['steps_per_s']:.3f} ms a step (wall)")
+        del plain, dp, g_plain, g_dp, gan
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        dist.destroy_process_group()
 
 
 def main():
@@ -4006,7 +4478,10 @@ def main():
         task.gan_step(tbatch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t_wall) * 1e3 / 3
-    per_kernel = device_ms(lambda: task.gan_step(tbatch), host_ops=False)
+    # one profiled step, as phases 18 and 22 profile theirs (three until
+    # phase 30 was added: this cut helps pay for it)
+    per_kernel = device_ms(lambda: task.gan_step(tbatch), n=1,
+                           host_ops=False)
     busy = sum(per_kernel.values())
     say(f"profile gan_step bf16 (B={TB} x 16000): wall {wall_ms:.3f} ms/step, "
         f"kernels {busy:.3f} ms, busy {busy / wall_ms:.1%}")
@@ -4125,7 +4600,7 @@ def main():
                       sine_excitation)
     # 25. the recipe's loader_threads: 4, the native batch producer
     t = time.perf_counter()
-    loader_launches = loader_phase(dev, items, train_counters)
+    loader_launches, loader_rates = loader_phase(dev, items, train_counters)
     phases["loader_s"] = time.perf_counter() - t
     say(f"phase 25 (the recipe's loader at K = {KSTEPS}): "
         f"{phases['loader_s']:.1f} s")
@@ -4152,9 +4627,18 @@ def main():
 
     # 29. both recipe drivers through the port's CLIs
     t = time.perf_counter()
-    recipes = recipe_drivers_phase(dev, phases)
+    keep_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_dumps_")
+    recipes = recipe_drivers_phase(dev, phases, keep_dir)
     phases["recipe_drivers_s"] = time.perf_counter() - t
     say(f"phase 29 (recipe drivers): {phases['recipe_drivers_s']:.1f} s")
+
+    # 30. data parallelism: two gloo ranks sharing the card, one NCCL rank
+    # captured at K = 8, the training CLI as two ranks
+    t = time.perf_counter()
+    dp_paths = dp_phase(dev, items, keep_dir, train_counters,
+                        loader_rates["loader_threads 4"])
+    phases["data_parallel_s"] = time.perf_counter() - t
+    say(f"phase 30 (data parallel): {phases['data_parallel_s']:.1f} s")
     recipe_paths = {}
     for recipe in RECIPE_CONF:
         total = {}
@@ -4170,7 +4654,8 @@ def main():
              "train_loader_k8": loader_launches,
              "b02_train_k_steps": b02_k_launches,
              "train_hifigan": hifi_launches,
-             "train_options": options_launches, **recipe_paths}
+             "train_options": options_launches, **recipe_paths,
+             **dp_paths}
     for row in kernels:
         name = row["name"].split(" ")[0]
         row["launches_by_path"] = {p: n.get(name, 0) for p, n in paths.items()}
@@ -4193,5 +4678,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 30(a)
+        dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()
     faulthandler.cancel_dump_traceback_later()

@@ -3,6 +3,13 @@
 Counterpart of `svcc23_fastsvc_tpu/losses/stft_loss.py`: per resolution,
 spectral convergence (a Frobenius ratio over the whole batch) plus the L1
 distance of log magnitudes, both averaged over the resolutions.
+
+Under data parallelism (`group`, the step's data group) the ratio stays
+batch-global: its two squared norms are summed across the ranks before
+the ratio, with autograd (`parallel.mesh.psum`), as JAX psums them over
+the shard_map axis. Each rank's gradient is then the group size times its
+share of the global one, and the step's gradient mean restores the
+global gradient exactly; a per-rank ratio averaged afterwards would not.
 """
 
 from __future__ import annotations
@@ -13,14 +20,17 @@ from typing import Sequence
 import torch
 
 from ..ops.stft import stft_magnitude
+from ..parallel.mesh import psum
 
 
-def stft_loss(x, y, fft_size: int, hop: int, win_length: int):
-    """Single-resolution (sc_loss, mag_loss) on (B, T) signals."""
+def stft_loss(x, y, fft_size: int, hop: int, win_length: int, group=None):
+    """Single-resolution (sc_loss, mag_loss) on (B, T) signals; `group`
+    sums the spectral convergence's norms across the data group."""
     x_mag = stft_magnitude(x, fft_size, hop, win_length)
     y_mag = stft_magnitude(y, fft_size, hop, win_length)
-    sc = (torch.sqrt(torch.sum(torch.square(y_mag - x_mag)))
-          / torch.sqrt(torch.sum(torch.square(y_mag))))
+    diff_sq = psum(torch.sum(torch.square(y_mag - x_mag)), group)
+    ref_sq = psum(torch.sum(torch.square(y_mag)), group)
+    sc = torch.sqrt(diff_sq) / torch.sqrt(ref_sq)
     mag = torch.mean(torch.abs(torch.log(y_mag) - torch.log(x_mag)))
     return sc, mag
 
@@ -39,15 +49,16 @@ class MultiResolutionSTFTLoss:
             raise ValueError("fft_sizes, hop_sizes and win_lengths differ "
                              "in length")
 
-    def __call__(self, x, y):
-        """x, y: predicted and target signals (B, T) or (B, T, C)."""
+    def __call__(self, x, y, group=None):
+        """x, y: predicted and target signals (B, T) or (B, T, C); `group`
+        the data group whose ranks hold the rest of the batch, or None."""
         if x.dim() == 3:  # (B, T, C) -> (B*C, T)
             x = x.movedim(-1, 1).reshape(-1, x.shape[1])
             y = y.movedim(-1, 1).reshape(-1, y.shape[1])
         sc_total, mag_total = 0.0, 0.0
         for fft, hop, win in zip(self.fft_sizes, self.hop_sizes,
                                  self.win_lengths):
-            sc, mag = stft_loss(x, y, fft, hop, win)
+            sc, mag = stft_loss(x, y, fft, hop, win, group)
             sc_total = sc_total + sc
             mag_total = mag_total + mag
         n = len(self.fft_sizes)

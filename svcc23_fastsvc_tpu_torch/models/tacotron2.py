@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from ..ops.conv import conv2d, l2_normalize, leaky_relu, linear
+from ..parallel.mesh import psum
 from .fastsvc import Conv1d, FiLMBlock, Linear, _placeholders
 
 
@@ -120,19 +121,34 @@ def batch_norm(x, p, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
-def batch_norm_train(x, p, momentum: float = 0.1, eps: float = 1e-5):
+def batch_norm_train(x, p, momentum: float = 0.1, eps: float = 1e-5,
+                     group=None):
     """Train-mode BatchNorm over (B, T, C): (y, new running statistics).
 
     Batch statistics over all B * T frames, padding included, in f32 (f64
     for f64 inputs); y in x's dtype; the new statistics {"mean", "var"} are
     (1 - momentum) * running + momentum * batch, with the batch variance
-    unbiased, as torch's BatchNorm1d and the JAX package compute them."""
+    unbiased, as torch's BatchNorm1d and the JAX package compute them.
+
+    With a data `group` the statistics are the whole group's batch, as in
+    JAX's GSPMD step: the sums and the frame count are summed across the
+    ranks (with autograd) before each division, so y and the new running
+    statistics are those of one process on the global batch, on every
+    rank."""
     wide = torch.promote_types(x.dtype, torch.float32)
     x32 = x.to(wide)
-    mean = x32.mean(dim=(0, 1))
-    var = torch.square(x32 - mean).mean(dim=(0, 1))
-    n = x.shape[0] * x.shape[1]
-    unbiased = (var * n / max(n - 1, 1)).detach()
+    if group is None:
+        mean = x32.mean(dim=(0, 1))
+        var = torch.square(x32 - mean).mean(dim=(0, 1))
+        n = x.shape[0] * x.shape[1]
+        unbiased = (var * n / max(n - 1, 1)).detach()
+    else:
+        # a filled tensor, not one made from host data: capturable
+        n = psum(torch.full((), x.shape[0] * x.shape[1], dtype=wide,
+                            device=x.device), group)
+        mean = psum(x32.sum(dim=(0, 1)), group) / n
+        var = psum(torch.square(x32 - mean).sum(dim=(0, 1)), group) / n
+        unbiased = (var * n / torch.clamp(n - 1, min=1)).detach()
     new_stats = {
         "mean": (1 - momentum) * p["mean"].to(wide) + momentum * mean.detach(),
         "var": (1 - momentum) * p["var"].to(wide) + momentum * unbiased,
@@ -219,16 +235,18 @@ class _Encoder(nn.Module):
                         "b_ih": m.bias_ih_l0_reverse,
                         "b_hh": m.bias_hh_l0_reverse}}
 
-    def forward(self, xs, lengths, *, train=False, masks=None, rate=0.0):
+    def forward(self, xs, lengths, *, train=False, masks=None, rate=0.0,
+                group=None):
         """(B, T, 2H) and each batch norm's new statistics (its stored ones
         in eval). In train mode `masks[i]` is the keep mask of the dropout
-        after conv i, or None."""
+        after conv i, or None. `group`: the data group whose ranks hold
+        the rest of the batch (the batch norms' statistics span it)."""
         h = _linear(self.input_layer, xs)
         stats = []
         for i, (conv, bn) in enumerate(self.convs):
             p = _bn_params(bn)
             if train:
-                h, new = batch_norm_train(conv(h), p)
+                h, new = batch_norm_train(conv(h), p, group=group)
             else:
                 h, new = batch_norm(conv(h), p), {"mean": p["mean"],
                                                   "var": p["var"]}
@@ -317,7 +335,7 @@ class Tacotron2(nn.Module):
             self.spk_emb_projection = Linear(hidden_dim + spk_emb_dim,
                                              hidden_dim, **kw)
 
-    def _bap(self, feats, logf0, lft, *, train=False):
+    def _bap(self, feats, logf0, lft, *, train=False, group=None):
         d = self.bap_decoder
         x = torch.cat([feats, logf0, lft], dim=-1)
         x = leaky_relu(d[0](x, padding=2, dilation=2))
@@ -326,7 +344,7 @@ class Tacotron2(nn.Module):
         x = d[9](x, padding=2, dilation=2)
         p = _bn_params(d[10])
         if train:
-            return batch_norm_train(x, p)
+            return batch_norm_train(x, p, group=group)
         return batch_norm(x, p), {"mean": p["mean"], "var": p["var"]}
 
     def prenet_masks(self, T: int, B: int, *, generator=None, device=None):
@@ -368,12 +386,13 @@ class Tacotron2(nn.Module):
 
     def forward(self, features, lengths, lft, logf0, spk_embs=None,
                 targets=None, *, train=False, draws=None, prenet_masks=None,
-                generator=None):
+                generator=None, group=None):
         """Without `targets`: the free-running decode, on `prenet_masks`
         (see `prenet_masks`) or masks drawn from `generator` (a
         `torch.Generator` on the features' device). With `targets`: the
         teacher-forced forward, on `draws` (see `train_draws`) or draws
-        from `generator`."""
+        from `generator`; in train mode the batch norms' statistics span
+        the data `group`'s rows when one is given."""
         B, T, _ = features.shape
         if targets is None and train:
             raise ValueError("train mode is teacher-forced: give targets")
@@ -383,8 +402,9 @@ class Tacotron2(nn.Module):
         enc, enc_bns = self.encoder(
             features, lengths, train=train,
             masks=None if draws is None else draws["enc"],
-            rate=self.enc_dropout_rate)
-        bap, bap_bn = self._bap(features, logf0, lft, train=train)
+            rate=self.enc_dropout_rate, group=group)
+        bap, bap_bn = self._bap(features, logf0, lft, train=train,
+                                group=group)
         bap = instance_norm_global(bap)
         enc = instance_norm_global(enc)
         if self.integrate_logf0:

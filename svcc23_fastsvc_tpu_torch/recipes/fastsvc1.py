@@ -22,9 +22,12 @@ commands (the test of the two drivers holds them equal), plus `--device`
         [--n-jobs 8] [--device cuda]
 
 Expects <datadir>/{train,dev}/wav.scp; reads egs/svcc23/fastsvc1/conf/
-by default. Training across processes (`--n-procs` > 1) needs the
-scale-out layer (the JAX package's `parallel/mesh.py` and
-`parallel/distributed.py`), which is not ported yet: it raises.
+by default. Training across processes, as the JAX driver runs it:
+`--n-procs N` without `--proc-id` runs every stage here and places the N
+`train_fastsvc` ranks of stage 4 through the launcher (`--cmd`; one a
+`--hosts` entry under ssh); with `--proc-id I` (one such driver a host)
+stage 1 extracts shard I of N, stage 4 runs rank I, and stages 0, 2, 3
+and 5 run on process 0 only.
 """
 
 from __future__ import annotations
@@ -43,13 +46,20 @@ def main(argv=None):
                         "real x-vectors instead of hash embeddings")
     p.add_argument("--speakers", nargs="*", default=None)
     p.add_argument("--n-procs", type=int, default=1,
-                   help="training processes (only 1: scale-out is not "
-                        "ported yet)")
+                   help="multi-host: total torch.distributed processes")
+    p.add_argument("--proc-id", type=int, default=None,
+                   help="multi-host: this process's index (omit to have "
+                        "the launcher place all --n-procs processes)")
+    p.add_argument("--coordinator", default="127.0.0.1:12321",
+                   help="multi-host: torch.distributed coordinator "
+                        "host:port")
     args = p.parse_args(argv)
-    if args.n_procs > 1:
-        p.error(f"--n-procs {args.n_procs}: training across processes needs "
-                "the scale-out layer (parallel/mesh.py, "
-                "parallel/distributed.py), which is not ported yet")
+    if args.proc_id is not None and not 0 <= args.proc_id < args.n_procs:
+        p.error(f"--proc-id {args.proc_id} is not a process of --n-procs "
+                f"{args.n_procs}")
+    multiproc = args.n_procs > 1
+    launch_train = multiproc and args.proc_id is None
+    main_proc = args.proc_id in (None, 0)
     d = Driver(args)
 
     train_scp = os.path.join(args.datadir, "train", "wav.scp")
@@ -60,7 +70,7 @@ def main(argv=None):
     def dump(split, norm=False):
         return os.path.join(args.dumpdir, f"{split}{'_norm' if norm else ''}")
 
-    if d.runs(0):
+    if d.runs(0) and main_proc:
         with d.stage(0):
             if args.xvector_checkpoint:
                 d.sh("extract_spk_embs", "--wav-scp", train_scp,
@@ -83,7 +93,11 @@ def main(argv=None):
                 common = ["--wav-scp", scp, "--dumpdir", dump(split),
                           "--config", args.conf, "--spk-emb-file", spk_embs,
                           "--linguistic", args.linguistic, *extra]
-                if args.n_jobs > 1:
+                if multiproc and args.proc_id is not None:
+                    # placed by hand: this process extracts its own shard
+                    d.sh("preprocess_fastsvc", *common, "--n-shards",
+                         args.n_procs, "--shard-id", args.proc_id)
+                elif args.n_jobs > 1:
                     d.sh_array(args.n_jobs, f"preprocess_{split}",
                                "preprocess_fastsvc", *common,
                                "--n-shards", "{n_jobs}", "--shard-id",
@@ -91,12 +105,12 @@ def main(argv=None):
                 else:
                     d.sh("preprocess_fastsvc", *common)
 
-    if d.runs(2):
+    if d.runs(2) and main_proc:
         with d.stage(2):
             d.sh("compute_f0stats", "--dumpdir", dump("train"),
                  "--outdir", os.path.join(args.dumpdir, "f0_stats"))
 
-    if d.runs(3):
+    if d.runs(3) and main_proc:
         with d.stage(3):
             stats = os.path.join(args.dumpdir, "stats.joblib")
             d.sh("compute_statistics_fastsvc", "--dumpdir", dump("train"),
@@ -112,10 +126,24 @@ def main(argv=None):
             extra = []
             if os.path.isdir(dump("dev", norm=True)):
                 extra = ["--dev-dumpdir", dump("dev", norm=True)]
-            d.sh("train_fastsvc", "--train-dumpdir", dump("train", norm=True),
-                 "--outdir", exp, "--config", args.conf, "--resume", *extra)
+            train_argv = ["--train-dumpdir", dump("train", norm=True),
+                          "--outdir", exp, "--config", args.conf, "--resume",
+                          *extra]
+            if launch_train:
+                # the driver places all N processes itself (one a --hosts
+                # entry under --cmd ssh, N local ones under --cmd local)
+                d.sh_array(args.n_procs, "train", "train_fastsvc",
+                           *train_argv, "--n-procs", args.n_procs,
+                           "--proc-id", "{job}", "--coordinator",
+                           args.coordinator)
+            elif multiproc:
+                d.sh("train_fastsvc", *train_argv, "--n-procs", args.n_procs,
+                     "--proc-id", args.proc_id, "--coordinator",
+                     args.coordinator)
+            else:
+                d.sh("train_fastsvc", *train_argv)
 
-    if d.runs(5):
+    if d.runs(5) and main_proc:
         with d.stage(5):
             extra = []
             if args.speakers:

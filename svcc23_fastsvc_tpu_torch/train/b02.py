@@ -33,6 +33,14 @@ optimizers' per-step scalars from a device table and draws its masks and
 window starts from the task's generator on the device, so
 `train.graphs.StepGraphs` captures it as one CUDA graph.
 
+Data parallelism (`dp_group`, as in `train.gan.FastSVCTrainTask`): each
+rank runs the step on its own rows; each player's gradients and the
+metrics are averaged across the group before the optimizer step, and the
+two couplings across the batch stay global, as in JAX's GSPMD step: the
+batch norms' statistics (`models.tacotron2.batch_norm_train`) and the
+masked MSE's numerator and count are summed across the ranks before they
+are divided, so uneven lengths and per-rank statistics change nothing.
+
 bf16 follows the JAX package's `_cast`: parameters, optimizer state and
 losses stay f32, the generator's parameters and the f32 inputs are cast
 to `compute_dtype`, and the batch-norm statistics stay f32 (they are
@@ -54,6 +62,7 @@ from ..losses import (
     generator_adversarial_loss,
     masked_mse_loss,
 )
+from ..parallel.mesh import pmean, pmean_metrics
 
 
 def _wide(t):
@@ -73,6 +82,8 @@ class B02TrainTask:
     compute_dtype: Any = None  # torch.bfloat16 for bf16 compute
     rng: Any = None  # torch.Generator of the random draws
     step: int = 0
+    # the data group to average gradients and metrics over, or None
+    dp_group: Any = None
 
     # the reference wrapper's prefix of the generator's checkpoint keys
     # (`train.checkpoint`), and the name of the draws' generator state there
@@ -133,13 +144,14 @@ class B02TrainTask:
             self._cast(batch["ppg"]), batch["lengths"],
             self._cast(batch["lft"]), self._cast(batch["lf0"]),
             self._cast(batch["spk_emb"]), self._cast(batch["targets"]),
-            train=train, draws=masks)
+            train=train, draws=masks, group=self.dp_group)
         # the losses stay in f32; the statistics are f32 already
         return _wide(pred), bn
 
     def _gen_loss(self, batch, draws, *, with_adv: bool, train: bool = True):
         pred, bn = self._forward(batch, draws["g"], train=train)
-        mse = masked_mse_loss(pred, batch["targets"], batch["lengths"])
+        mse = masked_mse_loss(pred, batch["targets"], batch["lengths"],
+                              self.dp_group)
         metrics = {"mse_loss": mse}
         gen_loss = self.lambda_l1 * mse
         if with_adv:
@@ -155,17 +167,17 @@ class B02TrainTask:
         metrics["generator_loss"] = gen_loss
         return gen_loss, metrics, bn
 
-    @staticmethod
-    def _update(module, opt, loss, coef=None):
+    def _update(self, module, opt, loss, coef=None):
         grads = torch.autograd.grad(loss, list(module.parameters()))
+        grads = pmean(grads, self.dp_group)
         if coef is None:
             opt.step(grads)
         else:
             opt.step(grads, coef)
 
-    @staticmethod
-    def _detach(metrics):
-        return {k: v.detach() for k, v in metrics.items()}
+    def _detach(self, metrics):
+        return pmean_metrics({k: v.detach() for k, v in metrics.items()},
+                             self.dp_group)
 
     # -- steps -----------------------------------------------------------
 

@@ -19,6 +19,16 @@ scalar of the optimizers from a device table and changes nothing on the
 host, so `train.graphs` can capture it as one CUDA graph; on the CPU it is
 an eager loop over the same per-step code.
 
+Data parallelism (`dp_group`, the counterpart of JAX's `pmean_axis`;
+`parallel.mesh`): each rank runs the step on its own rows; the gradients
+of each player are averaged across the group in one flat all-reduce
+before its optimizer step (so RAdam's clipping sees the global
+gradient), the metrics in one more, and the STFT loss's spectral
+convergence sums its norms across the group. The ranks' excitation noise
+comes from their own generators (`Trainer` seeds rank r's with seed +
+r). On the card a K-step call captures those all-reduces in its graph,
+which NCCL allows (`train.graphs`).
+
 bf16 follows the JAX package's `_cast` contract, not `torch.autocast`:
 parameters and optimizer state stay f32, the step casts the parameters
 (inside the graph, so gradients come back in f32) and the f32 inputs to
@@ -40,6 +50,7 @@ from ..losses import (
     discriminator_adversarial_loss,
     generator_adversarial_loss,
 )
+from ..parallel.mesh import pmean, pmean_metrics
 
 
 def _wide(t):
@@ -68,6 +79,8 @@ class FastSVCTrainTask:
     compute_dtype: Any = None  # torch.bfloat16 for bf16 compute
     rng: Any = None  # torch.Generator of the excitation noise
     step: int = 0
+    # the data group to average gradients and metrics over, or None
+    dp_group: Any = None
 
     # the generator's checkpoint keys carry no prefix (`train.checkpoint`);
     # the noise generator's state is stored under "sine"
@@ -118,7 +131,8 @@ class FastSVCTrainTask:
 
     def _gen_loss(self, batch, sine, *, with_adv: bool):
         y_hat = self._forward(batch, sine)
-        sc, mag = self.stft_loss(y_hat[..., 0], batch["audio"][..., 0])
+        sc, mag = self.stft_loss(y_hat[..., 0], batch["audio"][..., 0],
+                                 self.dp_group)
         gen_loss = sc + mag
         metrics = {"spectral_convergence_loss": sc,
                    "log_stft_magnitude_loss": mag}
@@ -142,17 +156,17 @@ class FastSVCTrainTask:
         return real + fake, {"real_loss": real, "fake_loss": fake,
                              "discriminator_loss": real + fake}
 
-    @staticmethod
-    def _update(module, opt, loss, coef=None):
+    def _update(self, module, opt, loss, coef=None):
         grads = torch.autograd.grad(loss, list(module.parameters()))
+        grads = pmean(grads, self.dp_group)
         if coef is None:  # the host path: wrappers of opt.step(grads) work
             opt.step(grads)
         else:
             opt.step(grads, coef)
 
-    @staticmethod
-    def _detach(metrics):
-        return {k: v.detach() for k, v in metrics.items()}
+    def _detach(self, metrics):
+        return pmean_metrics({k: v.detach() for k, v in metrics.items()},
+                             self.dp_group)
 
     # -- steps -----------------------------------------------------------
 

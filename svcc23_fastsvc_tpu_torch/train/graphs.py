@@ -28,6 +28,12 @@ another on one stream, so each may reuse what the others freed.
   the numbers k eager steps would draw next.
 - Outputs. The metrics, (k, n) in the graph's memory; each call returns a
   clone, as the next replay writes over them.
+- Data parallelism. A task with a `dp_group` all-reduces its gradients
+  and metrics inside each step, so the graph holds those collectives.
+  Only NCCL can be captured; the eager warm-up step is the first call of
+  each collective, so the communicator and its buffers exist before the
+  capture starts. A gloo group raises here: on the card a K-step call
+  never falls back to eager steps.
 - Addresses. A graph holds the addresses of the parameters and moments it
   updates. Loading a checkpoint copies into them in place; a replay checks
   that none was rebound since the capture, and raises if one was.
@@ -38,6 +44,7 @@ A capture that fails raises; nothing falls back to eager steps.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 _ALIGN = 256  # bytes; every field of the input buffer starts on it
 
@@ -111,6 +118,13 @@ class StepGraphs:
         if self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA task, not "
                              f"{self.device}")
+        group = getattr(task, "dp_group", None)
+        if group is not None and dist.get_backend(group) != "nccl":
+            raise ValueError(
+                f"a captured K-step call all-reduces inside its graph, and "
+                f"only NCCL collectives can be captured; this data group is "
+                f"{dist.get_backend(group)}: train with steps_per_call 1 or "
+                f"over NCCL")
         self.stream = torch.cuda.Stream(self.device)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: dict = {}

@@ -1,7 +1,8 @@
 """Host-side training loop around `train.gan.FastSVCTrainTask` and
 `train.b02.B02TrainTask`.
 
-Counterpart of `svcc23_fastsvc_tpu/train/loop.py::Trainer` on one device:
+Counterpart of `svcc23_fastsvc_tpu/train/loop.py::Trainer`, on one device
+or as one rank of a data group (`mesh=`):
 a step loop that picks `gen_step` up to `discriminator_train_start_steps`
 and `gan_step` after it, the warm-up fast-forward past
 `generator_train_start_steps`, log, eval and save intervals,
@@ -29,6 +30,19 @@ checkpoint saves the state of the first batch not yet taken, and `run`
 puts the batcher back there when it ends: `--resume` stays exact with the
 thread running ahead.
 
+Under a data group (`parallel.make_mesh`) each process is one rank: the
+trainer gives every rank rank 0's state (`replicate`) and rank r's noise
+generator the seed + r, sets the task's `dp_group` (the one step that
+JAX's `dp_impl` gspmd and shard_map both map to here), and feeds each
+call this rank's rows: a slice of the global batch its batcher draws
+(`shard_batch`), or with `multihost` the local batch its own batcher
+draws (`global_batch`). Rank 0 alone writes checkpoints, and every rank
+waits at a barrier until the file is whole; the intermediate dumps are
+skipped under `multihost`, as in JAX; the SIGTERM flag is combined
+across the ranks (MAX, on a host-side gloo group) at every call
+boundary, so all ranks stop and save at the same step and none is left
+waiting inside a collective.
+
 CUDA runs asynchronously, so each interval's rate is taken after the
 metrics' transfer has drained the device queue: steps/s and audio-s/s
 (frames/s for a batcher of `max_frames`-frame utterances, B02's) are
@@ -47,10 +61,21 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.prefetch import PrefetchIterator
 from ..data.wire import WirePacker, to_device
 from ..ops.conv import decide_conv_lowering
+from ..parallel.distributed import global_batch, global_stacked_batch
+from ..parallel.mesh import (
+    dp_impl,
+    host_group,
+    mesh_rank,
+    mesh_size,
+    replicate,
+    shard_batch,
+    shard_stacked_batch,
+)
 from .checkpoint import (
     checkpoint_path,
     latest_checkpoint,
@@ -99,7 +124,8 @@ def _plot_waveforms_png(path, gen, ref, sr):
 
 class Trainer:
     def __init__(self, task, train_batcher, *, config: dict, outdir: str,
-                 dev_batcher=None, writer=None):
+                 dev_batcher=None, writer=None, mesh=None,
+                 multihost: bool = False):
         self.task = task
         self.train_batcher = train_batcher
         self.dev_batcher = dev_batcher
@@ -113,6 +139,16 @@ class Trainer:
         # raises when it fails) here, not inside a step
         self.conv_lowering = decide_conv_lowering(self.device)
         logging.info("conv lowering: %s", self.conv_lowering)
+        self.mesh = mesh
+        self.multihost = multihost and mesh is not None
+        self.rank, self.world = mesh_rank(mesh), mesh_size(mesh)
+        self._host = host_group(mesh)
+        if mesh is not None:
+            logging.info("data parallel (dp_impl %s): rank %d of %d",
+                         dp_impl(config), self.rank, self.world)
+            replicate(task, mesh)
+            task.dp_group = mesh
+            self._seed_rank_noise()
         # K steps a call: on the card one captured CUDA graph per (phase,
         # k, batch layout), on the CPU an eager loop (train/graphs.py)
         self.steps_per_call = max(int(config.get("steps_per_call", 1)), 1)
@@ -156,6 +192,33 @@ class Trainer:
 
         for s in signals:
             _signal.signal(s, _handler)
+
+    def _agree(self, flag: bool) -> bool:
+        """`flag` on any rank (a MAX all-reduce on the host group)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([int(flag)])
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._host)
+        return bool(t.item())
+
+    def _seed_rank_noise(self):
+        """Rank r > 0 draws its own noise: seed + r at the start, and after
+        a resume (which loads rank 0's state everywhere) seed + r + W *
+        step; rank 0 keeps the single-process stream."""
+        rng = self.task.rng
+        if rng is not None and self.rank > 0:
+            rng.manual_seed(rng.initial_seed() + self.rank
+                            + self.world * self.task.step)
+
+    def _local_rows(self, batch: dict, stacked: bool = False) -> dict:
+        """This rank's rows of a host batch (or K stacked ones)."""
+        if self.mesh is None:
+            return batch
+        if self.multihost:
+            return (global_stacked_batch if stacked else global_batch)(
+                batch, self.mesh)
+        return (shard_stacked_batch if stacked else shard_batch)(
+            batch, self.mesh)
 
     # -- checkpoints -------------------------------------------------------
 
@@ -201,15 +264,25 @@ class Trainer:
             return
         rng = load_checkpoint(path, self.task, params_only=params_only)
         if rng and rng.get("batcher") is not None and \
-                getattr(self.train_batcher, "rng", None) is not None:
+                getattr(self.train_batcher, "rng", None) is not None \
+                and not (self.multihost and self.rank > 0):
+            # the checkpoint holds rank 0's batcher; under multihost rank
+            # r > 0 draws its own stream, which starts again at its seed
             self.train_batcher.rng.bit_generator.state = rng["batcher"]
+        self._seed_rank_noise()
         logging.info("%s %s (step %d)", "loaded params from" if params_only
                      else "resumed from", path, self.task.step)
 
-    def save(self):
+    def save(self, barrier: bool = True):
+        """Write the checkpoint of this step (rank 0 only under a data
+        group; with `barrier` the other ranks wait until it is whole)."""
         path = checkpoint_path(self.outdir, self.task.step)
-        save_checkpoint(path, self.task, batcher_rng=self._batcher_rng())
-        logging.info("saved checkpoint at step %d: %s", self.task.step, path)
+        if self.rank == 0:
+            save_checkpoint(path, self.task, batcher_rng=self._batcher_rng())
+            logging.info("saved checkpoint at step %d: %s", self.task.step,
+                         path)
+        if barrier and self.mesh is not None:
+            dist.barrier(group=self._host)
         return path
 
     # -- loop ------------------------------------------------------------
@@ -244,9 +317,10 @@ class Trainer:
             return max(min(cands), 1)
 
         profiler = self._start_profiler(cfg.get("profile_dir"))
+        finished = False
         try:
             while step < max_steps:
-                if self._preempt_requested:
+                if self._agree(self._preempt_requested):
                     self.preempted = True
                     logging.warning("preempted at step %d; saving and "
                                     "exiting (resume with --resume)", step)
@@ -255,8 +329,8 @@ class Trainer:
                 phase = "gan" if step > d_start else "gen"
                 t0 = time.time()
                 if k > 1:
-                    batches = self._pack(_stack(
-                        [self._next_batch() for _ in range(k)]))
+                    batches = self._pack(self._local_rows(_stack(
+                        [self._next_batch() for _ in range(k)]), True))
                     if self._graphs is not None:
                         staged = self._graphs.stage(phase, batches)
                     else:
@@ -271,7 +345,7 @@ class Trainer:
                     # logs it
                     metrics = {n: v.mean(0) for n, v in metrics.items()}
                 else:
-                    batch = self._pack(self._next_batch())
+                    batch = self._pack(self._local_rows(self._next_batch()))
                     batch = to_device(batch, self.device)
                     waits["data"] += time.time() - t0
                     t0 = time.time()
@@ -319,13 +393,15 @@ class Trainer:
                     t0 = time.time()
                     self.save()
                     waits["save"] += time.time() - t0
+            finished = True
         finally:
             if profiler is not None:
                 self._stop_profiler(profiler)
             # the batcher back at the first batch not taken, then the
-            # crash-safe save of the reference trainer
+            # crash-safe save of the reference trainer (no barrier after a
+            # failure: the other ranks may never reach it)
             self.close()
-            self.save()
+            self.save(barrier=finished)
 
     # -- profiling ---------------------------------------------------------
 
@@ -401,6 +477,10 @@ class Trainer:
         written."""
         n = self.config.get("num_save_intermediate_results", 0)
         if not n or not hasattr(self.task, "predict"):
+            return
+        if self.multihost:
+            # the dump runs outside the collective step; the JAX trainer
+            # skips it rather than strand the other processes
             return
         try:
             from ..bin.common import write_wav

@@ -13,10 +13,15 @@ and these two differences are taken out:
 * `--checkpoint <pkl>` where JAX passes `--checkpoint-dir <dir>`: the
   port's decode and synthesis CLIs read one `.pkl`, the latest under that
   directory when the stage starts.
+
+The FastSVC driver's `--n-procs 2` commands are held to JAX's the same
+way, with and without `--proc-id`. Beside them: on the card a K-step call
+with a gloo data group raises rather than runs eagerly.
 """
 
 import importlib.util
 import os
+import socket
 import subprocess
 import sys
 
@@ -155,7 +160,82 @@ def test_port_driver_runs_the_jax_drivers_commands(recipe, n_jobs, variant,
         len(got) + sum(n_jobs - 1 for g in got if g[0] == "launch"))
 
 
+@pytest.mark.parametrize("proc_id", [None, 0, 1])
+def test_port_driver_runs_the_jax_drivers_multi_process_commands(
+        proc_id, recipe_dir, monkeypatch):
+    """`--n-procs 2`: without `--proc-id` every stage runs here and stage 4
+    places both training ranks through the launcher; with one, stage 1
+    extracts that process's shard, stage 4 runs that rank, and stages 0,
+    2, 3 and 5 run on process 0 only: the JAX driver's commands each
+    time."""
+    argv = ["--conf", "conf.yaml", "--f0-conf", "f0.yml", "--n-procs", "2",
+            "--coordinator", "10.0.0.1:4242"]
+    if proc_id is not None:
+        argv += ["--proc-id", str(proc_id)]
+    jax_driver = _jax_driver("fastsvc1")
+    want = _record(monkeypatch, jax_launcher)
+    monkeypatch.setattr(sys, "argv", ["run.py", *argv])
+    jax_driver.main()
+    got = _record(monkeypatch, port_launcher)
+    report = fastsvc1.main([*argv, "--device", "cpu"])
+
+    stages = [0, 1, 2, 3, 4, 5] if proc_id in (None, 0) else [1, 4]
+    assert sorted(report) == stages
+    assert len(got) == len(want) == (9 if proc_id in (None, 0) else 3)
+    for g, w in zip(got, want):
+        assert g[0] == w[0]
+        assert _mapped(g[1]) == w[1]
+        if g[0] == "launch":
+            assert g[2] == w[2]
+            assert g[3] == w[3]
+    train = [g for g in got if "train_fastsvc" in g[1][2]]
+    assert len(train) == 1
+    if proc_id is None:  # the launcher's array of the two ranks
+        assert train[0][0] == "launch" and train[0][2] == 2
+        assert ["--proc-id", "{job}"] == train[0][1][-6:-4]
+    else:
+        assert train[0][0] == "run"
+        i = train[0][1].index("--proc-id")
+        assert train[0][1][i + 1] == str(proc_id)
+    shards = [g[1] for g in got if "preprocess_fastsvc" in g[1][2]]
+    assert len(shards) == 2  # train and dev
+    for cmd in shards:
+        assert ("--shard-id" in cmd) == (proc_id is not None)
+
+
 def test_port_driver_refuses_scale_out(recipe_dir, capsys):
+    """A `--proc-id` that names no process of `--n-procs` is refused."""
     with pytest.raises(SystemExit):
-        fastsvc1.main(["--n-procs", "2"])
-    assert "scale-out" in capsys.readouterr().err
+        fastsvc1.main(["--n-procs", "2", "--proc-id", "2"])
+    assert "--proc-id 2 is not a process of --n-procs 2" in \
+        capsys.readouterr().err
+
+
+def test_captured_k_steps_refuse_a_gloo_group(monkeypatch):
+    """On the card a K-step call is one captured CUDA graph, and only NCCL
+    collectives can be captured: `StepGraphs` (which `Trainer` builds for
+    steps_per_call > 1 on the card) raises for a task with a gloo data
+    group rather than run the steps eagerly. On the CPU, with the task's
+    device check patched to say cuda, over a one-rank gloo group."""
+    import torch
+    import torch.distributed as dist
+
+    from svcc23_fastsvc_tpu_torch.train.gan import FastSVCTrainTask
+    from svcc23_fastsvc_tpu_torch.train.graphs import StepGraphs
+
+    class Task(FastSVCTrainTask):
+        device = torch.device("cuda")
+
+    task = Task(generator=None, discriminator=None, g_opt=None, d_opt=None,
+                signal_generator=None)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        task.dp_group = dist.group.WORLD
+        with pytest.raises(ValueError, match="only NCCL"):
+            StepGraphs(task)
+    finally:
+        dist.destroy_process_group()
